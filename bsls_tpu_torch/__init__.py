@@ -1,0 +1,52 @@
+"""bsls_tpu_torch — block-simplex-constrained least squares on PyTorch/CUDA.
+
+The port of ``bsls_tpu`` (JAX, the reference, which stays in the repository)
+to PyTorch with hand-written CUDA kernels for an NVIDIA H100.  This package
+imports ``torch``, never ``jax``, and nothing of ``bsls_tpu``.
+
+Ported so far: the batched projected-gradient solve (``solve(...,
+method="pgd")`` with the exact, bb, bbm, fixed and pava line searches) on the
+gather layout, with CUDA kernels for the block-simplex projection and the
+bounded isotonic regression (``csrc/``).  Entry points take ``device=`` and
+default to ``"cuda"``; they run on the CPU only when asked to.
+
+Precision: fp32 on the device with float64 anchors on the host.  Dense and
+batched contractions stay at full fp32 — reduced-precision matrix passes cap
+the accuracy of A x near 2e-3 relative, which stalls 1e-6 convergence — so
+importing the package switches TF32 off for matrix products.
+"""
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+from .models import (  # noqa: E402
+    BlockPartition,
+    DenseMatrix,
+    EllMatrix,
+    OracleResult,
+    Problem,
+    oracle_solve,
+    synthetic,
+)
+from .ops.layout import DeviceProblem, prepare  # noqa: E402
+from .ops.rowkernels import launch_counts, reset_launch_counts  # noqa: E402
+from .solvers import SolveResult, solve  # noqa: E402
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "BlockPartition",
+    "DenseMatrix",
+    "EllMatrix",
+    "OracleResult",
+    "Problem",
+    "oracle_solve",
+    "synthetic",
+    "DeviceProblem",
+    "prepare",
+    "SolveResult",
+    "solve",
+    "launch_counts",
+    "reset_launch_counts",
+]

@@ -1,0 +1,128 @@
+"""Solve/benchmark CLI of the PyTorch/CUDA port.
+
+    python -m bsls_tpu_torch --config medium --method pgd --scenarios 128
+    python -m bsls_tpu_torch --config medium --line-search pava
+    python -m bsls_tpu_torch --config tiny --device cpu
+    python -m bsls_tpu_torch --config instance.npz --oracle
+
+Emits one JSON result line: iterations/s, objective, FW gap, the torch
+device, and objective-vs-oracle with time-to-1e-6-relative-gap when --oracle
+supplies f*.  Flags of parts that are not ported yet (refine, mesh,
+checkpoints, profiling) do not exist here and are rejected by the parser.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+
+
+def build_parser():
+    p = argparse.ArgumentParser(prog="bsls_tpu_torch")
+    p.add_argument("--preset", default=None, help="named preset from utils.config")
+    p.add_argument("--config", default=None, help="tiny|medium|large|path.npz|path.json")
+    p.add_argument("--method", default=None, help="pgd (the other solvers are not ported yet)")
+    p.add_argument("--line-search", dest="line_search", default=None,
+                   help="exact|bb|bbm|fixed|pava")
+    p.add_argument("--scenarios", type=int, default=None,
+                   help="batch the instance to S right-hand sides")
+    p.add_argument("--tol", type=float, default=None)
+    p.add_argument("--max-iter", dest="max_iter", type=int, default=None)
+    p.add_argument("--chunk", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--oracle", action="store_true", default=None)
+    p.add_argument("--metrics", dest="metrics_path", default=None)
+    p.add_argument("--device", default=None, help="cuda (default) | cpu")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    import torch
+
+    import bsls_tpu_torch as bsls
+    from bsls_tpu_torch.models import Problem, synthetic
+    from bsls_tpu_torch.models.synthetic import _CONFIGS
+    from bsls_tpu_torch.ops.layout import resolve_device
+    from bsls_tpu_torch.utils.config import load_config
+    from bsls_tpu_torch.utils.metrics import MetricsWriter
+
+    overrides = {
+        k: getattr(args, k)
+        for k in ("config method line_search scenarios tol max_iter chunk seed "
+                  "oracle metrics_path device").split()
+        if getattr(args, k) is not None
+    }
+    cfg = load_config(args.preset or args.config or "tiny", **overrides)
+    dev = resolve_device(cfg.device)  # no card and no --device cpu: raises here
+
+    t_gen = time.perf_counter()
+    if cfg.config in _CONFIGS:
+        prob = synthetic.make_config(cfg.config, seed=cfg.seed, **cfg.instance_kwargs)
+    else:
+        prob = Problem.load(cfg.config)
+    if cfg.scenarios > 1:
+        prob = synthetic.with_scenarios(prob, cfg.scenarios, seed=cfg.seed + 1)
+    t_gen = time.perf_counter() - t_gen
+
+    f_star = None
+    if cfg.oracle:
+        from bsls_tpu_torch.models.oracle import cached_oracle_objective
+
+        # cache per (config, seed): the float64 oracle on large instances
+        # costs minutes and is deterministic; ad-hoc file paths skip the cache
+        single = cfg.scenarios <= 1 and cfg.config in _CONFIGS
+        f_star = cached_oracle_objective(prob, f"{cfg.config}_{cfg.seed}" if single else None)
+
+    with MetricsWriter(cfg.metrics_path) as mw:
+        mw.log("config", **json.loads(cfg.to_json()))
+        res = bsls.solve(
+            prob,
+            method=cfg.method,
+            line_search=cfg.line_search,
+            tol=cfg.tol,
+            max_iter=cfg.max_iter,
+            chunk=cfg.chunk,
+            step_size=cfg.step_size,
+            dtype=getattr(torch, cfg.dtype),
+            metrics=mw if cfg.metrics_path else None,
+            device=dev,
+        )
+
+        ips = res.steady_iters_per_sec()
+        out = {
+            "config": cfg.config,
+            "method": cfg.method,
+            "line_search": cfg.line_search,
+            "scenarios": cfg.scenarios,
+            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
+            "n_devices": 1,
+            "iterations": int(res.iterations),
+            "converged": bool(res.converged),
+            "objective": np.asarray(res.objective).tolist(),
+            "fw_gap": np.asarray(res.gap).tolist(),
+            "iters_per_sec": round(ips, 3),
+            "gen_secs": round(t_gen, 3),
+        }
+        if f_star is not None:
+            out["oracle_objective"] = f_star
+            f = float(np.max(np.asarray(res.objective)))
+            out["rel_gap_vs_oracle"] = (f - f_star) / max(1.0, abs(f_star))
+            t6 = res.time_to_gap(f_star, rel=1e-6)
+            out["time_to_1e-6_gap_s"] = None if t6 is None else round(t6, 4)
+        mw.log("result", **out)
+    print(json.dumps(out))
+    return out
+
+
+def script_main() -> None:
+    """Console-script entry: a truthy return from main() would become
+    SystemExit(dict) under setuptools."""
+    main()
+
+
+if __name__ == "__main__":
+    main()

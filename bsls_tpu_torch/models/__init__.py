@@ -1,0 +1,16 @@
+from .partition import BlockPartition, Bucket
+from .problem import DenseMatrix, EllMatrix, Problem
+from .oracle import OracleResult, fw_gap_np, oracle_solve
+from . import synthetic
+
+__all__ = [
+    "BlockPartition",
+    "Bucket",
+    "DenseMatrix",
+    "EllMatrix",
+    "Problem",
+    "OracleResult",
+    "fw_gap_np",
+    "oracle_solve",
+    "synthetic",
+]

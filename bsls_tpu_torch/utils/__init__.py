@@ -1,0 +1,13 @@
+from . import config, metrics, refimpl
+from .config import PRESETS, RunConfig, load_config
+from .metrics import MetricsWriter
+
+__all__ = [
+    "config",
+    "metrics",
+    "refimpl",
+    "PRESETS",
+    "RunConfig",
+    "load_config",
+    "MetricsWriter",
+]

@@ -1,0 +1,85 @@
+"""Config system: one dataclass and presets for the ported benchmark configs.
+
+The field names are those of ``bsls_tpu/utils/config.py`` so that a config
+file written for the JAX package (``configs/*.json``) loads here too.  Fields
+of parts that are not ported yet are accepted only at their "off" value;
+anything else raises ``NotImplementedError`` — nothing is silently dropped.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Optional
+
+__all__ = ["RunConfig", "PRESETS", "load_config"]
+
+# fields of the reference's RunConfig whose feature is not ported yet, with
+# the value that means "off" and the slice that brings the feature
+_UNPORTED_OFF = {
+    "unroll": (1, "no scan to unroll: the port's chunk is a Python loop"),
+    "refine": (0, "refine/certify"),
+    "refine_tol": (None, "refine/certify"),
+    "mesh_block": (0, "distribution"),
+    "mesh_scenario": (1, "distribution"),
+    "profile_dir": (None, "harness"),
+    "checkpoint_path": (None, "checkpoint/CLI rest"),
+    "checkpoint_every": (0, "checkpoint/CLI rest"),
+    "resume": (False, "checkpoint/CLI rest"),
+}
+
+
+@dataclass
+class RunConfig:
+    # instance
+    config: str = "tiny"  # tiny | medium | large | <path.npz>
+    seed: int = 0
+    instance_kwargs: dict = field(default_factory=dict)
+    scenarios: int = 1  # > 1 batches the instance to S right-hand sides
+    # solver
+    method: str = "pgd"
+    line_search: str = "exact"  # exact | bb | bbm | fixed | pava
+    tol: float = 1e-6
+    max_iter: int = 10_000
+    chunk: int = 100
+    step_size: float = 0.0
+    dtype: str = "float32"
+    equilibrate: bool = True
+    # harness
+    device: str = "cuda"  # cuda | cpu
+    oracle: bool = False  # compute CPU float64 oracle for parity metrics
+    metrics_path: Optional[str] = None  # JSONL metrics output
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @staticmethod
+    def from_dict(d: dict) -> "RunConfig":
+        d = dict(d)
+        for key, (off, what) in _UNPORTED_OFF.items():
+            if key in d and d.pop(key) != off:
+                raise NotImplementedError(
+                    f"config field {key!r} is not ported yet ({what})")
+        return RunConfig(**d)
+
+
+PRESETS = {
+    "tiny": RunConfig(config="tiny", method="pgd", line_search="exact"),
+    "medium-pgd": RunConfig(config="medium", method="pgd"),
+    "medium-pgd-x128": RunConfig(config="medium", method="pgd", scenarios=128),
+    "sweep-pgd-pava": RunConfig(config="medium", method="pgd", line_search="pava"),
+}
+
+
+def load_config(name_or_path: str, **overrides) -> RunConfig:
+    if name_or_path in PRESETS:
+        cfg = dataclasses.replace(PRESETS[name_or_path])
+    elif name_or_path.endswith(".json"):
+        with open(name_or_path) as f:
+            cfg = RunConfig.from_dict(json.load(f))
+    else:
+        cfg = RunConfig(config=name_or_path)
+    for k, v in overrides.items():
+        if v is not None:
+            setattr(cfg, k, v)
+    return cfg

@@ -1,0 +1,111 @@
+"""Where a solver iteration spends the device's time.
+
+    python -m bsls_tpu_torch.utils.profiling --config medium --scenarios 128 \
+        --line-search exact,pava --iters 30 [--trace trace.json]
+
+Runs ``iters`` steps of the PGD solver under ``torch.profiler`` after a
+warm-up and prints one JSON line: wall time per iteration (host clock around
+a synchronised window), the device's busy time per iteration (union of the
+kernel intervals), its idle share, and the kernels by name with their device
+time and launches per iteration.  Needs a CUDA device; a trace without any
+device event is an error, not a result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+
+def profile_steps(dp, line_search: str, iters: int, warmup: int = 5, trace_path=None) -> dict:
+    from ..solvers import pgd
+    from ..solvers.base import SolveOptions, power_lipschitz, power_lipschitz_z, uses_zspace
+
+    opts = SolveOptions(method="pgd", line_search=line_search)
+    power = power_lipschitz_z if uses_zspace("pgd", line_search) else power_lipschitz
+    L_est = power(dp)
+    st = pgd.init(dp, L_est, opts)
+    for _ in range(warmup):
+        st = pgd.step(dp, st, L_est, opts)
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            st = pgd.step(dp, st, L_est, opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
+
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        rec = by_name.setdefault(e.name, [0, 0.0])
+        rec[0] += 1
+        rec[1] += e.time_range.end - e.time_range.start
+    if not spans:
+        raise RuntimeError("the profiler recorded no device event: time with CUDA events instead")
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0] if len(spans) > 1 else busy
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return {
+        "line_search": line_search,
+        "iters": iters,
+        "wall_ms_per_iter": 1e3 * wall / iters,
+        "device_busy_ms_per_iter": busy / 1e3 / iters,
+        "device_idle_share": 1.0 - busy / window,
+        "launches_per_iter": sum(c for c, _ in by_name.values()) / iters,
+        "kernels": [
+            {"name": name[:100], "launches_per_iter": c / iters, "ms_per_iter": us / 1e3 / iters}
+            for name, (c, us) in kernels[:16]
+        ],
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="bsls_tpu_torch.utils.profiling")
+    ap.add_argument("--config", default="medium")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scenarios", type=int, default=128)
+    ap.add_argument("--line-search", dest="line_search", default="exact",
+                    help="one line search, or several separated by commas")
+    ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--trace", default=None, help="also write a chrome trace here")
+    args = ap.parse_args(argv)
+
+    from ..models import synthetic
+    from ..ops.layout import prepare
+
+    prob = synthetic.make_config(args.config, seed=args.seed)
+    if args.scenarios > 1:
+        prob = synthetic.with_scenarios(prob, args.scenarios, seed=args.seed + 1)
+    dp = prepare(prob, device="cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    outs = []
+    for ls in args.line_search.split(","):
+        out = profile_steps(dp, ls, args.iters, trace_path=args.trace)
+        out.update(config=args.config, scenarios=args.scenarios, card=card)
+        print(json.dumps(out), flush=True)
+        outs.append(out)
+    return outs
+
+
+if __name__ == "__main__":
+    main()

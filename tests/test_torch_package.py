@@ -1,0 +1,150 @@
+"""The PyTorch port stands alone: it imports nothing of JAX or of the JAX
+package, runs on the CPU only when asked to, refuses what is not ported, and
+its CLI prints the result line."""
+import json
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "bsls_tpu_torch")
+
+
+def _python_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def _modules():
+    mods = []
+    for path in _python_sources():
+        if not path.startswith(PKG):
+            continue
+        rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        mods.append(rel[: -len(".__init__")] if rel.endswith(".__init__") else rel)
+    return sorted(m for m in mods if not m.endswith("__main__"))
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'jaxlib' or m == 'bsls_tpu' or m.startswith('bsls_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    assert len(_modules()) >= 20
+
+
+def test_sources_name_no_jax_import():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|bsls_tpu)(\.|\s|$)", re.M)
+    assert os.path.exists(os.path.join(REPO, "chip_smoke.py"))
+    for path in _python_sources():
+        with open(path) as fh:
+            src = fh.read()
+        assert not pat.search(src), path
+        assert "torch.compile" not in src or path.endswith("chip_smoke.py"), path
+
+
+def test_default_device_without_a_card_raises():
+    import torch
+
+    import bsls_tpu_torch as bt
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    prob = bt.synthetic.tiny_dense(num_blocks=4, dim=3, m=10)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bt.solve(prob)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bt.prepare(prob)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bt.solve(prob, device="cuda")
+    from bsls_tpu_torch.convert import device_problem_from_numpy
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        device_problem_from_numpy({})
+
+
+UNPORTED = {
+    "mesh": dict(mesh=object()),
+    "refine": dict(refine=2),
+    "refine_tol": dict(refine_tol=1e-6),
+    "certify": dict(certify=10),
+    "checkpoint_path": dict(checkpoint_path="ck"),
+    "resume": dict(resume=True),
+    "method_apgd": dict(method="apgd"),
+    "method_lbfgs": dict(method="lbfgs"),
+    "method_eg": dict(method="eg"),
+    "method_fw": dict(method="frank_wolfe"),
+    "method_afw": dict(method="afw"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNPORTED))
+def test_unported_options_raise(name):
+    import bsls_tpu_torch as bt
+
+    prob = bt.synthetic.tiny_dense(num_blocks=4, dim=3, m=10)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        bt.solve(prob, device="cpu", **UNPORTED[name])
+
+
+def test_equality_constrained_problem_raises():
+    import bsls_tpu_torch as bt
+
+    prob = bt.synthetic.traffic_like(num_blocks=10, m=40, num_eq=3)
+    with pytest.raises(NotImplementedError, match="equality"):
+        bt.solve(prob, device="cpu")
+    with pytest.raises(ValueError):
+        bt.solve(bt.synthetic.tiny_dense(num_blocks=4, dim=3, m=10), device="cpu",
+                 line_search="armijo")
+
+
+def _cli(*args):
+    return subprocess.run([sys.executable, "-m", "bsls_tpu_torch", *args], cwd=REPO,
+                          capture_output=True, text=True)
+
+
+def test_cli_runs_on_the_cpu_and_counts_no_launch():
+    proc = _cli("--device", "cpu", "--config", "tiny", "--max-iter", "200", "--scenarios", "2")
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["device"] == "cpu" and out["config"] == "tiny" and out["method"] == "pgd"
+    assert out["scenarios"] == 2 and len(out["objective"]) == 2
+    assert out["iterations"] == 200 and out["iters_per_sec"] > 0
+
+    import bsls_tpu_torch as bt
+
+    bt.reset_launch_counts()
+    bt.solve(bt.synthetic.tiny_dense(num_blocks=4, dim=3, m=10), device="cpu", max_iter=10,
+             chunk=10, line_search="pava")
+    assert bt.launch_counts() == {"proj_simplex_rows": 0, "pava_rows": 0}
+
+
+@pytest.mark.parametrize("flag", [["--refine", "3"], ["--mesh-block", "8"], ["--resume"],
+                                  ["--checkpoint", "ck"], ["--unroll", "4"]])
+def test_cli_rejects_flags_of_unported_parts(flag):
+    proc = _cli("--device", "cpu", "--config", "tiny", *flag)
+    assert proc.returncode == 2
+    assert "unrecognized arguments" in proc.stderr
+
+
+def test_cli_default_device_fails_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = _cli("--config", "tiny")
+    assert proc.returncode != 0 and "cuda" in proc.stderr
+    proc = _cli("--device", "cpu", "--config", "tiny", "--method", "lbfgs")
+    assert proc.returncode != 0 and "not ported" in proc.stderr

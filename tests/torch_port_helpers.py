@@ -1,0 +1,62 @@
+"""Shared helpers of the tests/test_torch_*.py files: flatten the device
+objects of both packages to dictionaries of numpy arrays (the only thing that
+crosses between them) and build the small seeded instances the tests use."""
+import numpy as np
+
+
+def _arr(a):
+    # works for jax arrays, torch CPU tensors and numpy alike
+    return np.asarray(a.detach().cpu().numpy() if hasattr(a, "detach") else a)
+
+
+def flatten_device_problem(dp) -> dict:
+    """A DeviceProblem of either package -> {field name: numpy array}, under
+    the key names that bsls_tpu_torch.convert documents."""
+    d = {}
+    A = dp.A
+    if hasattr(A, "data"):
+        d["A.data"] = _arr(A.data)
+    else:
+        d["A.rows"], d["A.vals"] = _arr(A.rows), _arr(A.vals)
+        if isinstance(A.mv_cols, tuple):
+            for i, (c, v) in enumerate(zip(A.mv_cols, A.mv_vals)):
+                d[f"A.mv_cols[{i}]"], d[f"A.mv_vals[{i}]"] = _arr(c), _arr(v)
+        elif A.mv_cols is not None:
+            d["A.mv_cols"], d["A.mv_vals"] = _arr(A.mv_cols), _arr(A.mv_vals)
+        if A.rt_rows is not None:
+            for i, (c, v) in enumerate(zip(A.rt_rows, A.rt_vals)):
+                d[f"A.rt_rows[{i}]"], d[f"A.rt_vals[{i}]"] = _arr(c), _arr(v)
+            d["A.rt_inv"] = _arr(A.rt_inv)
+        d["A.rt_zeros"] = int(A.rt_zeros)
+    d["b"] = _arr(dp.b)
+    d["perm"] = _arr(dp.perm)
+    d["row_perm"] = None if dp.row_perm is None else _arr(dp.row_perm)
+    d["n_user"], d["num_rows"] = int(dp.n_user), int(dp.num_rows)
+    for i, bk in enumerate(dp.buckets):
+        d[f"buckets[{i}].mask"] = _arr(bk.mask)
+        d[f"buckets[{i}].sizes"] = _arr(bk.sizes)
+        d[f"buckets[{i}].radius"] = _arr(bk.radius)
+        d[f"buckets[{i}].width"] = int(bk.width)
+    return d
+
+
+def flatten_state(st) -> dict:
+    """A PGDState of either package -> {field name: numpy array}."""
+    d = {f"xp[{i}]": _arr(x) for i, x in enumerate(st.xp)}
+    for name in ("r", "f", "gap", "x_prev", "g_prev"):
+        d[name] = _arr(getattr(st, name))
+    d["k"] = np.asarray(st.k)
+    return d
+
+
+def small_instance(synthetic, kind: str, scenarios: int = 1):
+    """The small seeded instances, from either package's ``synthetic``."""
+    if kind == "dense":
+        prob = synthetic.tiny_dense(seed=3, num_blocks=12, dim=5, m=64)
+    elif kind == "ell":
+        prob = synthetic.medium_sparse(seed=3, num_blocks=64, m=512)
+    else:
+        raise KeyError(kind)
+    if scenarios > 1:
+        prob = synthetic.with_scenarios(prob, scenarios, seed=4)
+    return prob
