@@ -6,9 +6,11 @@ imports ``torch``, never ``jax``, and nothing of ``bsls_tpu``.
 
 Ported so far: the batched projected-gradient solve (``solve(...,
 method="pgd")`` with the exact, bb, bbm, fixed and pava line searches) on the
-gather layout, with CUDA kernels for the block-simplex projection and the
-bounded isotonic regression (``csrc/``).  Entry points take ``device=`` and
-default to ``"cuda"``; they run on the CPU only when asked to.
+gather and the banded layout, and the opt-in fused chunk (``BSLS_MEGA=1``),
+with CUDA kernels (``csrc/``) for the block-simplex projection, the bounded
+isotonic regression, the two per-page band contractions and the fused chunk
+of PGD iterations.  Entry points take ``device=`` and default to ``"cuda"``;
+they run on the CPU only when asked to.
 
 Precision: fp32 on the device with float64 anchors on the host.  Dense and
 batched contractions stay at full fp32 — reduced-precision matrix passes cap
@@ -30,7 +32,7 @@ from .models import (  # noqa: E402
     synthetic,
 )
 from .ops.layout import DeviceProblem, prepare  # noqa: E402
-from .ops.rowkernels import launch_counts, reset_launch_counts  # noqa: E402
+from .ops.cudalib import launch_counts, reset_launch_counts  # noqa: E402
 from .solvers import SolveResult, solve  # noqa: E402
 
 __version__ = "0.1.0"

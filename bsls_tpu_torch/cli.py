@@ -2,6 +2,7 @@
 
     python -m bsls_tpu_torch --config medium --method pgd --scenarios 128
     python -m bsls_tpu_torch --config medium --line-search pava
+    python -m bsls_tpu_torch --preset medium-banded [--layout gather]
     python -m bsls_tpu_torch --config tiny --device cpu
     python -m bsls_tpu_torch --config instance.npz --oracle
 
@@ -28,6 +29,9 @@ def build_parser():
                    help="exact|bb|bbm|fixed|pava")
     p.add_argument("--scenarios", type=int, default=None,
                    help="batch the instance to S right-hand sides")
+    p.add_argument("--layout", choices=["auto", "banded", "gather"], default=None,
+                   help="device layout of a sparse A (default auto: banded when the "
+                        "instance is bandable and has fewer than 16 scenarios)")
     p.add_argument("--tol", type=float, default=None)
     p.add_argument("--max-iter", dest="max_iter", type=int, default=None)
     p.add_argument("--chunk", type=int, default=None)
@@ -46,13 +50,13 @@ def main(argv=None):
     import bsls_tpu_torch as bsls
     from bsls_tpu_torch.models import Problem, synthetic
     from bsls_tpu_torch.models.synthetic import _CONFIGS
-    from bsls_tpu_torch.ops.layout import resolve_device
+    from bsls_tpu_torch.ops.layout import DeviceBanded, resolve_device
     from bsls_tpu_torch.utils.config import load_config
     from bsls_tpu_torch.utils.metrics import MetricsWriter
 
     overrides = {
         k: getattr(args, k)
-        for k in ("config method line_search scenarios tol max_iter chunk seed "
+        for k in ("config method line_search scenarios layout tol max_iter chunk seed "
                   "oracle metrics_path device").split()
         if getattr(args, k) is not None
     }
@@ -79,17 +83,17 @@ def main(argv=None):
 
     with MetricsWriter(cfg.metrics_path) as mw:
         mw.log("config", **json.loads(cfg.to_json()))
+        dp = bsls.prepare(prob, dtype=getattr(torch, cfg.dtype), equilibrate=cfg.equilibrate,
+                          layout=cfg.layout, device=dev)
         res = bsls.solve(
-            prob,
+            dp,
             method=cfg.method,
             line_search=cfg.line_search,
             tol=cfg.tol,
             max_iter=cfg.max_iter,
             chunk=cfg.chunk,
             step_size=cfg.step_size,
-            dtype=getattr(torch, cfg.dtype),
             metrics=mw if cfg.metrics_path else None,
-            device=dev,
         )
 
         ips = res.steady_iters_per_sec()
@@ -98,6 +102,7 @@ def main(argv=None):
             "method": cfg.method,
             "line_search": cfg.line_search,
             "scenarios": cfg.scenarios,
+            "layout": "banded" if isinstance(dp.A, DeviceBanded) else "gather",
             "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
             "n_devices": 1,
             "iterations": int(res.iterations),

@@ -14,6 +14,10 @@ the layout that the reference's ``prepare`` built.
     A.mv_cols[i], A.mv_vals[i]          row-nnz-bucketed row-ELL groups, or
     A.mv_cols, A.mv_vals                the single (1, m, kr) row-ELL
     A.rt_rows[i], A.rt_vals[i], A.rt_inv, A.rt_zeros   col-nnz-bucketed copy
+    A.bands[i], A.back, A.wpages, A.seg_lens, A.pages   banded layout, with
+    A.resid.rows, A.resid.vals, A.resid.mv_cols, ...    its residual ELL (the
+                                                        ELL keys above under
+                                                        the stem A.resid)
     b, perm, row_perm, n_user, num_rows
     buckets[i].mask / .sizes / .radius / .width
 
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from .ops.layout import (
-    DeviceBucket, DeviceDense, DeviceEll, DeviceProblem, resolve_device,
+    DeviceBanded, DeviceBucket, DeviceDense, DeviceEll, DeviceProblem, resolve_device,
 )
 from .solvers.pgd import PGDState
 
@@ -54,23 +58,38 @@ def device_problem_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> De
     def opt(key, conv):
         return conv(d[key]) if d.get(key) is not None else None
 
-    num_rows = int(d["num_rows"])
-    if "A.data" in d:
-        A = DeviceDense(data=fl(d["A.data"]))
-    else:
-        mv_cols, mv_vals = _numbered(d, "A.mv_cols"), _numbered(d, "A.mv_vals")
-        rt_rows, rt_vals = _numbered(d, "A.rt_rows"), _numbered(d, "A.rt_vals")
-        A = DeviceEll(
-            rows=ix(d["A.rows"]),
-            vals=fl(d["A.vals"]),
-            mv_cols=tuple(ix(c) for c in mv_cols) if mv_cols else opt("A.mv_cols", ix),
-            mv_vals=tuple(fl(v) for v in mv_vals) if mv_vals else opt("A.mv_vals", fl),
+    def ell(stem):
+        mv_cols, mv_vals = _numbered(d, f"{stem}.mv_cols"), _numbered(d, f"{stem}.mv_vals")
+        rt_rows, rt_vals = _numbered(d, f"{stem}.rt_rows"), _numbered(d, f"{stem}.rt_vals")
+        return DeviceEll(
+            rows=ix(d[f"{stem}.rows"]),
+            vals=fl(d[f"{stem}.vals"]),
+            mv_cols=tuple(ix(c) for c in mv_cols) if mv_cols else opt(f"{stem}.mv_cols", ix),
+            mv_vals=tuple(fl(v) for v in mv_vals) if mv_vals else opt(f"{stem}.mv_vals", fl),
             num_rows=num_rows,
             rt_rows=tuple(ix(c) for c in rt_rows) if rt_rows else None,
             rt_vals=tuple(fl(v) for v in rt_vals) if rt_vals else None,
-            rt_inv=opt("A.rt_inv", ix),
-            rt_zeros=int(d.get("A.rt_zeros", 0)),
+            rt_inv=opt(f"{stem}.rt_inv", ix),
+            rt_zeros=int(d.get(f"{stem}.rt_zeros", 0)),
         )
+
+    num_rows = int(d["num_rows"])
+    if "A.data" in d:
+        A = DeviceDense(data=fl(d["A.data"]))
+    elif "A.bands[0]" in d:
+        bands = tuple(fl(bd) for bd in _numbered(d, "A.bands"))
+        A = DeviceBanded(
+            bands=bands,
+            resid=ell("A.resid") if "A.resid.rows" in d else None,
+            num_rows=num_rows,
+            wpages=int(d["A.wpages"]),
+            back=int(d["A.back"]),
+            n_pf=int(np.asarray(d["perm"]).shape[0]),
+            seg_lens=tuple(int(v) for v in d["A.seg_lens"]),
+            pages=int(d.get("A.pages") or bands[0].shape[0]),
+        )
+    else:
+        A = ell("A")
     buckets = []
     while f"buckets[{len(buckets)}].mask" in d:
         stem = f"buckets[{len(buckets)}]"

@@ -4,7 +4,7 @@
 //   out[r, n:] = 0,   n = widths[r % Bk]   (n = 0: the whole row is 0)
 //
 // Replaces the TPU kernel pava_pallas_tw
-// (bsls_tpu/ops/pallas/pava_kernel.py:112, core _pava_tile_kernel_t).
+// (bsls_tpu/ops/pallas/pava_kernel.py:132, core _pava_tile_kernel_t).
 //
 // Bound on this card: memory.  Each row is read once and written once,
 // 2 * 4 * R * w bytes plus 8 * Bk bytes of parameters; pool-adjacent-violators

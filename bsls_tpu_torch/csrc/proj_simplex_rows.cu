@@ -4,7 +4,7 @@
 //   out[r, n:] = 0,   n = widths[r % Bk]   (n = 0: the whole row is 0)
 //
 // Replaces the TPU kernel proj_simplex_pallas_tw
-// (bsls_tpu/ops/pallas/projection_kernel.py:109, core _proj_tile_kernel_t).
+// (bsls_tpu/ops/pallas/projection_kernel.py:132, core _proj_tile_kernel_t).
 //
 // Bound on this card: memory.  Each row is read once and written once,
 // 2 * 4 * R * w bytes plus the 8 * Bk bytes of parameters, against some
@@ -25,7 +25,9 @@
 // step.  One Newton correction of tau on the found support takes the
 // cancellation error of cumsum - radius out of the row sum, as the TPU kernel
 // does.  Rows of any other width up to 128 go through a generic kernel with
-// the row in local memory and an insertion sort.
+// the row in local memory and an insertion sort (proj_device.cuh, shared with
+// the fused-chunk kernel).
+#include "proj_device.cuh"
 #include "rows_common.cuh"
 
 namespace bsls {
@@ -97,41 +99,8 @@ proj_rows_generic(const float* __restrict__ v, const int* __restrict__ widths,
   const int b = static_cast<int>(row % Bk);
   const int n = min(widths[b], w);
   const float rad = radius[b];
-  const float* src = v + row * w;
-  float* dst = out + row * w;
-
   float u[kMaxWidth];
-  // insertion sort of the valid prefix, descending
-  for (int i = 0; i < n; ++i) {
-    const float val = src[i];
-    int j = i;
-    while (j > 0 && u[j - 1] < val) {
-      u[j] = u[j - 1];
-      --j;
-    }
-    u[j] = val;
-  }
-  float tau = 0.0f;
-  if (n > 0) {
-    float css = 0.0f, css_rho = u[0];
-    int rho = 0;
-    for (int k = 0; k < n; ++k) {
-      css += u[k];
-      if (u[k] * static_cast<float>(k + 1) > css - rad) {
-        rho = k;
-        css_rho = css;
-      }
-    }
-    tau = (css_rho - rad) / static_cast<float>(rho + 1);
-    float ssum = 0.0f, nsup = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      const float o = fmaxf(src[i] - tau, 0.0f);
-      ssum += o;
-      nsup += (o > 0.0f) ? 1.0f : 0.0f;
-    }
-    tau += (ssum - rad) / fmaxf(nsup, 1.0f);
-  }
-  for (int i = 0; i < w; ++i) dst[i] = (i < n) ? fmaxf(src[i] - tau, 0.0f) : 0.0f;
+  proj_simplex_row(v + row * w, n, w, rad, u, out + row * w);
 }
 
 }  // namespace bsls

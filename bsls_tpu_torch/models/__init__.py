@@ -1,7 +1,7 @@
 from .partition import BlockPartition, Bucket
 from .problem import DenseMatrix, EllMatrix, Problem
 from .oracle import OracleResult, fw_gap_np, oracle_solve
-from . import synthetic
+from . import reorder, synthetic
 
 __all__ = [
     "BlockPartition",
@@ -12,5 +12,6 @@ __all__ = [
     "OracleResult",
     "fw_gap_np",
     "oracle_solve",
+    "reorder",
     "synthetic",
 ]

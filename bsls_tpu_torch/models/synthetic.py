@@ -101,7 +101,7 @@ def medium_banded(seed: int = 0, num_blocks: int = 10_000, dim_lo: int = 3,
     """Corridor-structured medium instance: each OD block's routes traverse
     links near a block-specific corridor center (the realistic regime —
     routes are spatially local), so the incidence matrix is bandable and
-    the banded-split layout (not ported yet) applies.  Same scale and demand
+    the banded-split layout (``ops/banded.py``) applies.  Same scale and demand
     model as ``medium_sparse``; only the link-locality differs."""
     rng = np.random.default_rng(seed)
     sizes = rng.integers(dim_lo, dim_hi + 1, size=num_blocks).astype(np.int64)

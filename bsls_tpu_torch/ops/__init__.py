@@ -1,4 +1,10 @@
-from . import isotonic, layout, projection, quadratic, rowkernels, simplex, ztransform
+from . import (
+    banded, chunkkernel, cudalib, isotonic, layout, pagekernels, projection, quadratic,
+    rowkernels, simplex, ztransform,
+)
+from .banded import DeviceBanded
+from .chunkkernel import pgd_chunk
+from .cudalib import launch_counts, reset_launch_counts
 from .isotonic import pava_blocks, pava_bounded, pava_padded
 from .layout import (
     DeviceBucket,
@@ -18,10 +24,19 @@ from .layout import (
     xdot,
 )
 from .projection import proj_blocks, proj_simplex_padded
-from .rowkernels import launch_counts, pava_rows, proj_simplex_rows, reset_launch_counts
+from .pagekernels import band_grmv, band_zmv
+from .rowkernels import pava_rows, proj_simplex_rows
 from .simplex import block_min
 
 __all__ = [
+    "banded",
+    "chunkkernel",
+    "cudalib",
+    "pagekernels",
+    "DeviceBanded",
+    "band_grmv",
+    "band_zmv",
+    "pgd_chunk",
     "isotonic",
     "layout",
     "projection",

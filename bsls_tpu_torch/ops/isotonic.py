@@ -20,7 +20,7 @@ Two versions of the same function live here:
   tensor that lies on the CPU.
 
 Replaces the TPU kernel ``pava_pallas_tw``
-(``bsls_tpu/ops/pallas/pava_kernel.py:112``) and its dispatch
+(``bsls_tpu/ops/pallas/pava_kernel.py:132``) and its dispatch
 ``bsls_tpu/ops/isotonic.py::pava_bounded``.
 """
 from __future__ import annotations

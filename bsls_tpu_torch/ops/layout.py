@@ -1,4 +1,5 @@
-"""Device-side problem layout: the padded-flat ("PF") data path, gather layout.
+"""Device-side problem layout: the padded-flat ("PF") data path, in the gather
+and the banded layout.
 
 The columns of A are permuted **once at prepare time** into bucket-major,
 padded order — one (zero) column per padded slot.  Then
@@ -10,15 +11,17 @@ and the ``(S, Bk, w)`` rectangles that the per-block kernels want without any
 gather.  The cost is a bounded fraction of zero columns in A (padding waste
 < 2x within a bucket).
 
-Counterpart of ``bsls_tpu/ops/layout.py`` for the unsharded gather layout.
-Where the reference vmaps over scenarios, every function here takes an
-explicit leading scenario axis: a flat vector is ``(n,)`` or ``(S, n)``, a
-padded bucket ``(Bk, w)`` or ``(S, Bk, w)``.  The banded layout, the sharded
-encodings and the stacked operator of the equality-constrained path are not
-ported yet.
+Counterpart of ``bsls_tpu/ops/layout.py`` for one device.  Where the
+reference vmaps over scenarios, every function here takes an explicit leading
+scenario axis: a flat vector is ``(n,)`` or ``(S, n)``, a padded bucket
+``(Bk, w)`` or ``(S, Bk, w)``.  ``prepare(layout="auto")`` tries the banded
+layout (``ops/banded.py``) for a sparse A with fewer than 16 scenarios and
+keeps the gather layout otherwise.  The sharded encodings and the stacked
+operator of the equality-constrained path are not ported yet.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional, Union
 
@@ -27,10 +30,12 @@ import torch
 
 from ..models.partition import BlockPartition
 from ..models.problem import DenseMatrix, EllMatrix, Problem
+from .banded import PAGE, DeviceBanded, banded_matvec, banded_rmatvec, build_banded_split
 
 __all__ = [
     "DeviceDense",
     "DeviceEll",
+    "DeviceBanded",
     "DeviceBucket",
     "DeviceProblem",
     "build_pf_perm",
@@ -102,7 +107,7 @@ class DeviceEll:
 
 ROW_ELL_MAX_K = 512
 
-DeviceMatrix = Union[DeviceDense, DeviceEll]
+DeviceMatrix = Union[DeviceDense, DeviceEll, DeviceBanded]
 
 
 @dataclass(frozen=True)
@@ -116,7 +121,9 @@ class DeviceBucket:
 @dataclass(frozen=True)
 class DeviceProblem:
     """Device-side problem, unsharded.  ``b`` keeps the shape the user gave:
-    (m,) for one right-hand side or (S, m) for S scenarios."""
+    (m,) for one right-hand side or (S, m) for S scenarios.  ``perm`` follows
+    the partition the layout solves under: the banded layout regroups the
+    blocks by row window, and extraction maps back through ``perm`` alone."""
 
     A: DeviceMatrix
     b: torch.Tensor  # (m,) single scenario or (S, m)
@@ -379,37 +386,9 @@ def block_scales(problem: Problem) -> np.ndarray:
     return c
 
 
-def prepare(
-    problem: Problem,
-    dtype=torch.float32,
-    equilibrate: bool = True,
-    layout: str = "auto",  # auto | gather   (banded: later slice)
-    device="cuda",
-) -> DeviceProblem:
-    """Move a host Problem into the device-side PF layout (gather layout).
-
-    ``layout="auto"`` always selects the gather layout here; the reference's
-    banded layout is not ported yet and ``layout="banded"`` raises."""
-    if layout == "banded":
-        raise NotImplementedError(
-            "layout='banded' is not ported yet (later slice: banded layout "
-            "with its page kernels)")
-    if layout not in ("auto", "gather"):
-        raise ValueError(f"unknown layout {layout!r}")
-    if problem.C is not None:
-        raise NotImplementedError(
-            "equality-constrained instances (Problem.C) are not ported yet "
-            "(later slice: equality-constrained path)")
-    dev = resolve_device(device)
-    part = problem.partition
-    perm = build_pf_perm(part)
-    if equilibrate:
-        c = block_scales(problem)
-        col_scale = np.repeat(c, part.sizes)
-    else:
-        c = np.ones(part.num_blocks)
-        col_scale = None
-    buckets = tuple(
+def _device_buckets(part: BlockPartition, c: np.ndarray, dtype, dev) -> tuple:
+    """The partition's buckets on the device; ``c`` are the per-block scales."""
+    return tuple(
         DeviceBucket(
             mask=torch.as_tensor(b.mask, dtype=dtype, device=dev),
             sizes=torch.as_tensor(b.sizes, dtype=torch.int32, device=dev),
@@ -421,12 +400,167 @@ def prepare(
         )
         for b in part.buckets
     )
+
+
+def _scales(problem: Problem, equilibrate: bool):
+    """(per-block scale c, per-user-column scale or None)."""
+    part = problem.partition
+    if equilibrate:
+        c = block_scales(problem)
+        return c, np.repeat(c, part.sizes)
+    return np.ones(part.num_blocks), None
+
+
+def _prepare_banded(
+    problem: Problem, dtype, equilibrate: bool, force: bool, dev: torch.device,
+    fit_threshold: float = 0.6, band_budget_bytes: int = 2 << 30,
+) -> Optional[DeviceProblem]:
+    """Try the banded-split layout (ops/banded.py): re-orders blocks by row
+    window, builds per-bucket band tensors and a sparse residual.  Returns the
+    DeviceProblem — whose ``perm`` and buckets follow the VALUE-GROUPED
+    partition — or None when the instance is not bandable enough (fit
+    fraction below threshold) or the band tensors would exceed the memory
+    budget; the caller then falls back to the gather layout.  ``b`` stays in
+    the user's row order: the row-nnz bucketing does not apply here."""
+    part = problem.partition
+    A0: EllMatrix = problem.A
+    # per-block window page: min nonzero row page over the block's columns
+    nzmask = np.asarray(A0.vals) != 0
+    rows_h = np.asarray(A0.rows)
+    col_min = np.where(nzmask, rows_h, np.iinfo(np.int32).max).min(axis=1)
+    col_max = np.where(nzmask, rows_h, -1).max(axis=1)
+    offsets = np.concatenate([[0], np.cumsum(part.sizes)])[:-1]
+    Mp = -(-A0.num_rows // PAGE)
+    block_page = np.clip(np.minimum.reduceat(col_min, offsets) // PAGE, 0, Mp - 1)
+
+    # cheap pre-screens BEFORE building the grouped partition (the full
+    # attempt is host work that instances which cannot qualify should not pay):
+    # (a) nnz-weighted fraction of columns whose row span fits any window
+    col_nnz = nzmask.sum(axis=1)
+    span_ok = (col_max - col_min) <= 7 * PAGE  # max_pages=8 window
+    frac_ok = float(col_nnz[span_ok & (col_nnz > 0)].sum()) / max(col_nnz.sum(), 1)
+    if frac_ok < fit_threshold and not force:
+        return None
+    # (b) band memory at the value-grouped inflation (bpp = max page load)
+    bpp = int(np.bincount(block_page, minlength=Mp).max())
+    est_bytes = Mp * bpp * float(np.mean(part.sizes) + 2) * 1024 * 4
+    if est_bytes > band_budget_bytes and not force:
+        return None
+
+    # value-grouped partition: a block's PF row exactly encodes its window
+    # page, so the banded ladder is exact (groups padded to max page load).
+    # BSLS_BAND_CAP=<q> caps the load at that quantile of the page loads
+    # (overflow blocks carry forward a page and the window's `back` margin
+    # absorbs the shift): less band memory, but the carried-forward blocks
+    # widen the effective window of every later page.  Off by default, as in
+    # the reference; for when device memory, not throughput, binds.
+    cap_env = os.environ.get("BSLS_BAND_CAP", "none")
+    cap_q = None if cap_env.lower() == "none" else float(cap_env)
+    part2 = BlockPartition.from_sizes(part.sizes, order_key=block_page, groups=Mp,
+                                      group_cap_quantile=cap_q)
+
+    perm = build_pf_perm(part2)
+    c, col_scale = _scales(problem, equilibrate)
+    np_dtype = _np_float(dtype)
+    sel = perm >= 0
+    rows_pf = np.zeros((perm.size, A0.k), dtype=np.int32)
+    vals_pf = np.zeros((perm.size, A0.k), dtype=np_dtype)
+    rows_pf[sel] = rows_h[perm[sel]]
+    v = np.asarray(A0.vals)[perm[sel]]
+    cs = None if col_scale is None else col_scale[perm[sel]]
+    vals_pf[sel] = v if cs is None else v / cs[:, None]
+
+    seg_lens = [b.num_blocks * b.width for b in part2.buckets]
+    bands, back, wpages, fit, (res_rows, res_vals) = build_banded_split(
+        rows_pf, vals_pf, A0.num_rows, seg_lens, dtype=np_dtype, pages=Mp
+    )
+    if fit < fit_threshold and not force:
+        return None
+
+    def fl(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    def ix(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32, device=dev)
+
+    resid = None
+    if (res_vals != 0).any():
+        mv_cols, mv_vals = _build_row_ell(res_rows, res_vals, A0.num_rows)
+        rt_r, rt_v, rt_inv, n_zero = _build_col_ell_bucketed(res_rows, res_vals)
+        resid = DeviceEll(
+            rows=ix(res_rows),
+            vals=fl(res_vals),
+            mv_cols=None if mv_cols is None else ix(mv_cols),
+            mv_vals=None if mv_vals is None else fl(mv_vals),
+            num_rows=A0.num_rows,
+            rt_rows=None if rt_r is None else tuple(ix(x) for x in rt_r),
+            rt_vals=None if rt_v is None else tuple(fl(x) for x in rt_v),
+            rt_inv=None if rt_inv is None else ix(rt_inv),
+            rt_zeros=n_zero,
+        )
+    A = DeviceBanded(
+        bands=tuple(fl(bd) for bd in bands),
+        resid=resid,
+        num_rows=A0.num_rows,
+        wpages=wpages,
+        back=back,
+        n_pf=int(perm.size),
+        seg_lens=tuple(seg_lens),
+        pages=Mp,
+    )
+    return DeviceProblem(
+        A=A,
+        b=fl(np.asarray(problem.b)),
+        buckets=_device_buckets(part2, c, dtype, dev),
+        perm=ix(perm),
+        n_user=part.n_flat,
+        num_rows=A0.num_rows,
+    )
+
+
+def prepare(
+    problem: Problem,
+    dtype=torch.float32,
+    equilibrate: bool = True,
+    layout: str = "auto",  # auto | banded | gather
+    device="cuda",
+) -> DeviceProblem:
+    """Move a host Problem into the device-side PF layout.
+
+    ``layout="auto"`` tries the banded layout for an ``EllMatrix`` with fewer
+    than 16 scenarios and falls back to the gather layout when the instance
+    is not bandable; with more scenarios it keeps the gather layout (the band
+    tensors stream the same bytes whatever S is, while scenario batching
+    amortises the gathers — the reference's crossover, kept as its
+    behaviour).  ``layout="banded"`` forces the band at any S and raises on a
+    dense A; ``layout="gather"`` never tries it."""
+    if layout not in ("auto", "banded", "gather"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if problem.C is not None:
+        raise NotImplementedError(
+            "equality-constrained instances (Problem.C) are not ported yet "
+            "(later slice: equality-constrained path)")
+    dev = resolve_device(device)
+    b_host = np.asarray(problem.b)
+    num_scenarios = int(b_host.shape[0]) if b_host.ndim == 2 else 1
+    if layout == "banded" or (layout == "auto" and num_scenarios < 16):
+        if isinstance(problem.A, EllMatrix):
+            dp = _prepare_banded(problem, dtype, equilibrate, force=(layout == "banded"),
+                                 dev=dev)
+            if dp is not None:
+                return dp
+        elif layout == "banded":
+            raise ValueError("layout='banded' requires an EllMatrix instance")
+    part = problem.partition
+    perm = build_pf_perm(part)
+    c, col_scale = _scales(problem, equilibrate)
+    buckets = _device_buckets(part, c, dtype, dev)
     out_info: dict = {}
     A = to_device_matrix(
         problem.A, perm, dtype, col_scale,
         row_bucket=isinstance(problem.A, EllMatrix), device=dev, _out=out_info,
     )
-    b = np.asarray(problem.b)
+    b = b_host
     if "row_perm" in out_info:
         # r lives in the nnz-sorted row order from here on
         b = b[..., out_info["row_perm"]]
@@ -565,6 +699,9 @@ def gather_dot(vals: torch.Tensor, idx: torch.Tensor, vec: torch.Tensor) -> torc
 
 def matvec(A: DeviceMatrix, x: torch.Tensor) -> torch.Tensor:
     """A @ x for PF flat x of shape (n_pf,) or (S, n_pf)."""
+    if isinstance(A, DeviceBanded):
+        y = banded_matvec(A, x)
+        return y if A.resid is None else y + matvec(A.resid, x)
     if isinstance(A, DeviceDense):
         # full fp32: TF32 is off package-wide (see bsls_tpu_torch/__init__.py)
         return x @ A.data.t()
@@ -586,6 +723,9 @@ def matvec(A: DeviceMatrix, x: torch.Tensor) -> torch.Tensor:
 
 def rmatvec(A: DeviceMatrix, r: torch.Tensor) -> torch.Tensor:
     """A^T @ r -> PF flat, for r of shape (m,) or (S, m)."""
+    if isinstance(A, DeviceBanded):
+        g = banded_rmatvec(A, r)
+        return g if A.resid is None else g + rmatvec(A.resid, r)
     if isinstance(A, DeviceDense):
         return r @ A.data
     if A.rt_rows is not None:

@@ -17,7 +17,7 @@ Two versions of the same function live here:
   plain version only for a tensor that lies on the CPU.
 
 Replaces the TPU kernel ``proj_simplex_pallas_tw``
-(``bsls_tpu/ops/pallas/projection_kernel.py:109``) and its dispatch
+(``bsls_tpu/ops/pallas/projection_kernel.py:132``) and its dispatch
 ``bsls_tpu/ops/projection.py::proj_blocks``.  The reference's size gate on
 the kernel has no counterpart: the ``(S, Bk, w)`` tensor is contiguous, the
 scenario fold is a reshape, and the kernel indexes ``sizes``/``radius`` by

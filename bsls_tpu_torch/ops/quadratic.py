@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import torch
 
-from .layout import DeviceProblem, matvec, rdot, rmatvec
+from .layout import (
+    DeviceBanded, DeviceDense, DeviceEll, DeviceProblem, flat_to_padded, matvec, rdot, rmatvec,
+)
 
 __all__ = [
     "residual",
@@ -17,7 +19,27 @@ __all__ = [
     "grad_flat",
     "exact_step",
     "bb_step",
+    "diag_quad",
 ]
+
+
+def _diag_flat(A) -> torch.Tensor:
+    if isinstance(A, DeviceBanded):
+        # the band holds each fitting column densely: its squared norm is a
+        # sum over the window axis; non-fitting columns live in the residual
+        d = torch.cat([(band * band).sum(dim=-1).reshape(-1) for band in A.bands])
+        return d if A.resid is None else d + _diag_flat(A.resid)
+    if isinstance(A, DeviceDense):
+        return (A.data * A.data).sum(dim=0)
+    if isinstance(A, DeviceEll):
+        return (A.vals * A.vals).sum(dim=-1)
+    raise TypeError(f"unsupported device matrix {type(A)}")
+
+
+def diag_quad(dp: DeviceProblem) -> tuple:
+    """diag(A^T A) as padded buckets (squared column norms in the PF layout;
+    the per-block diagonal curvature)."""
+    return flat_to_padded(dp, _diag_flat(dp.A))
 
 
 def residual(dp: DeviceProblem, x_flat: torch.Tensor, b=None) -> torch.Tensor:

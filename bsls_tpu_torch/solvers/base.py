@@ -20,6 +20,9 @@ Iterations use an *incremental residual* (r += t * A d), so PGD costs two
 matvec-equivalents per iteration; ``refresh`` recomputes r exactly at every
 chunk boundary to stop fp drift.
 
+With ``BSLS_MEGA=1`` a chunk of an eligible solve is one launch of the
+fused-chunk kernel (``solvers/mega.py``).
+
 Counterpart of ``bsls_tpu/solvers/base.py`` for ``method="pgd"``.  Parts that
 are not ported yet raise ``NotImplementedError``; none is silently ignored.
 """
@@ -331,6 +334,25 @@ def solve(
         xp0 = L.inject_user_flat(dp, x0t if multi else x0t[None])
     state = solver.init(dp, L_est, opts, xp0=xp0)
 
+    # fused-chunk fast path (small dense single-RHS instances, opt-in; see
+    # solvers/mega.py for eligibility) — produces and consumes the same
+    # PGDState, so the chunk loop below is unchanged
+    from .mega import make_mega_runner
+
+    mega_run = None if multi else make_mega_runner(dp, method, opts, L_est, chunk)
+
+    def run_chunk(st):
+        st = solver.refresh(dp, st, L_est, opts)
+        tf = torch.empty((st.f.shape[0], chunk), dtype=st.f.dtype, device=dp.device)
+        tg = torch.empty_like(tf)
+        for j in range(chunk):
+            st = solver.step(dp, st, L_est, opts)
+            tf[:, j] = st.f
+            tg[:, j] = st.gap
+        return st, (tf, tg)
+
+    run = mega_run if mega_run is not None else run_chunk
+
     # Chunk loop: K steps enqueued without a host sync, then ONE readback of
     # the end-of-chunk (f, gap), which is also what closes the chunk's wall
     # time.  The per-step traces stay on the device until the end.
@@ -342,13 +364,7 @@ def solve(
         torch.cuda.synchronize(dp.device)
     t0 = time.perf_counter()
     while it < max_iter:
-        state = solver.refresh(dp, state, L_est, opts)
-        tf = torch.empty((state.f.shape[0], chunk), dtype=state.f.dtype, device=dp.device)
-        tg = torch.empty_like(tf)
-        for j in range(chunk):
-            state = solver.step(dp, state, L_est, opts)
-            tf[:, j] = state.f
-            tg[:, j] = state.gap
+        state, (tf, tg) = run(state)
         it += chunk
         traces_f.append(tf)
         traces_g.append(tg)

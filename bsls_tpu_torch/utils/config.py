@@ -45,6 +45,7 @@ class RunConfig:
     step_size: float = 0.0
     dtype: str = "float32"
     equilibrate: bool = True
+    layout: str = "auto"  # auto | banded | gather  (ops.layout.prepare)
     # harness
     device: str = "cuda"  # cuda | cpu
     oracle: bool = False  # compute CPU float64 oracle for parity metrics
@@ -67,6 +68,9 @@ PRESETS = {
     "tiny": RunConfig(config="tiny", method="pgd", line_search="exact"),
     "medium-pgd": RunConfig(config="medium", method="pgd"),
     "medium-pgd-x128": RunConfig(config="medium", method="pgd", scenarios=128),
+    # corridor-structured instance: prepare(layout="auto") picks the
+    # banded-split layout
+    "medium-banded": RunConfig(config="medium_banded", method="pgd", line_search="bbm"),
     "sweep-pgd-pava": RunConfig(config="medium", method="pgd", line_search="pava"),
 }
 

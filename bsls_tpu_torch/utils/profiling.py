@@ -2,6 +2,8 @@
 
     python -m bsls_tpu_torch.utils.profiling --config medium --scenarios 128 \
         --line-search exact,pava --iters 30 [--trace trace.json]
+    python -m bsls_tpu_torch.utils.profiling --config medium_banded --scenarios 1 \
+        --line-search bbm --layout auto
 
 Runs ``iters`` steps of the PGD solver under ``torch.profiler`` after a
 warm-up and prints one JSON line: wall time per iteration (host clock around
@@ -84,24 +86,26 @@ def main(argv=None):
     ap.add_argument("--scenarios", type=int, default=128)
     ap.add_argument("--line-search", dest="line_search", default="exact",
                     help="one line search, or several separated by commas")
+    ap.add_argument("--layout", choices=["auto", "banded", "gather"], default="auto")
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--trace", default=None, help="also write a chrome trace here")
     args = ap.parse_args(argv)
 
     from ..models import synthetic
-    from ..ops.layout import prepare
+    from ..ops.layout import DeviceBanded, prepare
 
     prob = synthetic.make_config(args.config, seed=args.seed)
     if args.scenarios > 1:
         prob = synthetic.with_scenarios(prob, args.scenarios, seed=args.seed + 1)
-    dp = prepare(prob, device="cuda")
+    dp = prepare(prob, layout=args.layout, device="cuda")
+    layout = "banded" if isinstance(dp.A, DeviceBanded) else "gather"
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
     outs = []
     for ls in args.line_search.split(","):
         out = profile_steps(dp, ls, args.iters, trace_path=args.trace)
-        out.update(config=args.config, scenarios=args.scenarios, card=card)
+        out.update(config=args.config, scenarios=args.scenarios, layout=layout, card=card)
         print(json.dumps(out), flush=True)
         outs.append(out)
     return outs

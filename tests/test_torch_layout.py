@@ -22,7 +22,7 @@ def _pair(kind, scenarios=1):
     """(host problem, JAX DeviceProblem, port DeviceProblem on the CPU)."""
     prob = small_instance(tsyn, kind, scenarios)
     dj = JL.prepare(small_instance(jsyn, kind, scenarios), layout="gather")
-    dt = TL.prepare(prob, device="cpu")
+    dt = TL.prepare(prob, layout="gather", device="cpu")
     return prob, dj, dt
 
 

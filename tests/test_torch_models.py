@@ -59,7 +59,8 @@ def test_prepare_matches_reference(kind, scenarios, equilibrate):
     dj = flatten_device_problem(JL.prepare(
         small_instance(jsyn, kind, scenarios), layout="gather", equilibrate=equilibrate))
     dt = flatten_device_problem(TL.prepare(
-        small_instance(tsyn, kind, scenarios), equilibrate=equilibrate, device="cpu"))
+        small_instance(tsyn, kind, scenarios), equilibrate=equilibrate, layout="gather",
+        device="cpu"))
     assert sorted(dj) == sorted(dt)
     for key, want in dj.items():
         got = dt[key]
@@ -87,9 +88,11 @@ def test_prepare_block_multiple_dummy_rows():
 
 
 def test_prepare_unported_raise():
-    prob = small_instance(tsyn, "ell")
-    with pytest.raises(NotImplementedError, match="banded"):
-        TL.prepare(prob, layout="banded", device="cpu")
+    # the banded layout needs a sparse A; an unknown layout is an error too
+    with pytest.raises(ValueError, match="banded"):
+        TL.prepare(small_instance(tsyn, "dense"), layout="banded", device="cpu")
+    with pytest.raises(ValueError, match="unknown layout"):
+        TL.prepare(small_instance(tsyn, "ell"), layout="paged", device="cpu")
     with pytest.raises(NotImplementedError, match="equality"):
         TL.prepare(GENERATORS["traffic_like"](tsyn), device="cpu")
     with pytest.raises(NotImplementedError, match="traffic"):

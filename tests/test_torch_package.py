@@ -9,6 +9,8 @@ import sys
 
 import pytest
 
+from torch_port_helpers import KERNELS
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "bsls_tpu_torch")
 
@@ -42,7 +44,35 @@ def test_importing_every_module_pulls_in_no_jax():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
-    assert len(_modules()) >= 20
+    assert len(_modules()) >= 27
+    for new in ("ops.banded", "ops.pagekernels", "ops.chunkkernel", "ops.cudalib",
+                "solvers.mega", "models.reorder"):
+        assert f"bsls_tpu_torch.{new}" in _modules()
+
+
+def test_importing_every_module_touches_no_cuda_and_builds_nothing():
+    code = (
+        "import importlib, os, sys, torch\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from bsls_tpu_torch.ops import cudalib\n"
+        "assert cudalib._lib is None, 'the kernel library was loaded at import'\n"
+        "assert not torch.cuda.is_initialized(), 'CUDA was initialised at import'\n"
+        "assert 'triton' not in sys.modules\n"
+        "assert cudalib.launch_counts() == dict.fromkeys(cudalib.launch_counts(), 0)\n"
+        "print(sorted(cudalib.launch_counts()))\n"
+    )
+    build = os.path.join(PKG, "csrc", "_build")
+    before = set(os.listdir(build)) if os.path.isdir(build) else None
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == str(sorted(KERNELS))
+    assert (set(os.listdir(build)) if os.path.isdir(build) else None) == before
+    # every kernel the library is built from has its source in the package
+    from bsls_tpu_torch.ops import cudalib
+
+    for src in cudalib._SOURCES + cudalib._HEADERS:
+        assert os.path.exists(os.path.join(PKG, "csrc", src)), src
 
 
 def test_sources_name_no_jax_import():
@@ -128,7 +158,7 @@ def test_cli_runs_on_the_cpu_and_counts_no_launch():
     bt.reset_launch_counts()
     bt.solve(bt.synthetic.tiny_dense(num_blocks=4, dim=3, m=10), device="cpu", max_iter=10,
              chunk=10, line_search="pava")
-    assert bt.launch_counts() == {"proj_simplex_rows": 0, "pava_rows": 0}
+    assert bt.launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
 @pytest.mark.parametrize("flag", [["--refine", "3"], ["--mesh-block", "8"], ["--resume"],
@@ -148,3 +178,5 @@ def test_cli_default_device_fails_without_a_card():
     assert proc.returncode != 0 and "cuda" in proc.stderr
     proc = _cli("--device", "cpu", "--config", "tiny", "--method", "lbfgs")
     assert proc.returncode != 0 and "not ported" in proc.stderr
+    proc = _cli("--config", "medium-banded")
+    assert proc.returncode != 0 and "cuda" in proc.stderr

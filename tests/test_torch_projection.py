@@ -13,6 +13,7 @@ from bsls_tpu.utils.refimpl import proj_simplex_np as proj_np_ref
 from bsls_tpu_torch.ops import rowkernels
 from bsls_tpu_torch.ops.projection import proj_blocks, proj_simplex_padded
 from bsls_tpu_torch.utils.refimpl import proj_blocks_np, proj_simplex_np
+from torch_port_helpers import KERNELS
 
 # tolerance of tests/test_pallas.py: the Pallas kernel bisects in fp32
 ATOL = 3e-5
@@ -75,8 +76,8 @@ def test_refimpl_copy_matches_reference_refimpl():
 
 def test_proj_blocks_on_cpu_takes_plain_version_and_launches_nothing():
     prob = bt.synthetic.medium_sparse(seed=1, num_blocks=40, m=200)
-    dp = bt.prepare(prob, device="cpu")
-    rowkernels.reset_launch_counts()
+    dp = bt.prepare(prob, layout="gather", device="cpu")
+    bt.reset_launch_counts()
     rng = np.random.default_rng(4)
     xp = tuple(torch.from_numpy(rng.standard_normal((3,) + tuple(bk.mask.shape)).astype(np.float32))
                for bk in dp.buckets)
@@ -84,7 +85,7 @@ def test_proj_blocks_on_cpu_takes_plain_version_and_launches_nothing():
     for o, bk in zip(out, dp.buckets):
         np.testing.assert_allclose(o.sum(-1).numpy(), bk.radius.expand(3, -1).numpy(), rtol=1e-5)
         assert float((o * (1 - bk.mask)).abs().sum()) == 0.0
-    assert bt.launch_counts() == {"proj_simplex_rows": 0, "pava_rows": 0}
+    assert bt.launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -96,4 +97,4 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rowkernels.pava_rows(torch.from_numpy(v), torch.from_numpy(widths),
                              torch.from_numpy(radius))
-    assert bt.launch_counts() == {"proj_simplex_rows": 0, "pava_rows": 0}
+    assert bt.launch_counts() == dict.fromkeys(KERNELS, 0)

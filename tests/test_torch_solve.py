@@ -11,11 +11,11 @@ import bsls_tpu_torch as bt
 from bsls_tpu.models import synthetic as jsyn
 from bsls_tpu_torch.models import synthetic as tsyn
 from bsls_tpu_torch.solvers.base import StopTracker, power_lipschitz, power_lipschitz_z
-from torch_port_helpers import small_instance
+from torch_port_helpers import KERNELS, small_instance
 
 
 def _lipschitz(prob, line_search):
-    dp = bt.prepare(prob, device="cpu")
+    dp = bt.prepare(prob, layout="gather", device="cpu")
     return (power_lipschitz_z if line_search == "pava" else power_lipschitz)(dp)
 
 
@@ -35,9 +35,9 @@ def test_solve_matches_reference_solve(kind, scenarios, line_search):
     L_est = _lipschitz(pt, line_search)
     kw = dict(method="pgd", line_search=line_search, tol=0.0, max_iter=200, chunk=100,
               lipschitz=L_est)
-    res = bt.solve(pt, device="cpu", **kw)
-    # layout="gather": for S < 16 the reference's "auto" may pick the banded
-    # layout, which the port does not have yet
+    # layout="gather" on both sides: for S < 16 "auto" may pick the banded
+    # layout, which tests/test_torch_banded.py covers
+    res = bt.solve(bt.prepare(pt, layout="gather", device="cpu"), **kw)
     ref = bsls_tpu.solve(JL.prepare(pj, layout="gather"), **kw)
     lead = () if scenarios == 1 else (scenarios,)
     assert res.trace_f.shape == lead + (200,) and res.x.shape == lead + (pt.partition.n_flat,)
@@ -62,7 +62,7 @@ def test_solve_matches_reference_solve(kind, scenarios, line_search):
     # the device's fp32 objective against the float64 objective of the x it returns
     np.testing.assert_allclose(pt.objective_np(res.x), res.objective, rtol=1e-3, atol=1e-6)
     assert np.all(np.diff(res.trace_f, axis=-1) <= 1e-5 * np.abs(res.trace_f[..., :-1]) + 1e-7)
-    assert bt.launch_counts() == {"proj_simplex_rows": 0, "pava_rows": 0}
+    assert bt.launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
 @pytest.mark.parametrize("kind", ["dense", "ell"])
@@ -82,7 +82,7 @@ def test_stop_rule_matches_reference(kind):
     L_est = _lipschitz(pt, "exact")
     kw = dict(method="pgd", line_search="exact", tol=1e-4, max_iter=3000, chunk=100,
               lipschitz=L_est)
-    res = bt.solve(pt, device="cpu", **kw)
+    res = bt.solve(bt.prepare(pt, layout="gather", device="cpu"), **kw)
     ref = bsls_tpu.solve(JL.prepare(pj, layout="gather"), **kw)
     assert res.converged and ref.converged
     assert res.stop_reason == ref.stop_reason

@@ -3,10 +3,27 @@ objects of both packages to dictionaries of numpy arrays (the only thing that
 crosses between them) and build the small seeded instances the tests use."""
 import numpy as np
 
+# every hand-written kernel of the port, under the name its wrapper counts
+KERNELS = ("proj_simplex_rows", "pava_rows", "band_zmv", "band_grmv", "pgd_chunk")
+
 
 def _arr(a):
     # works for jax arrays, torch CPU tensors and numpy alike
     return np.asarray(a.detach().cpu().numpy() if hasattr(a, "detach") else a)
+
+
+def _flatten_ell(d, stem, A):
+    d[f"{stem}.rows"], d[f"{stem}.vals"] = _arr(A.rows), _arr(A.vals)
+    if isinstance(A.mv_cols, tuple):
+        for i, (c, v) in enumerate(zip(A.mv_cols, A.mv_vals)):
+            d[f"{stem}.mv_cols[{i}]"], d[f"{stem}.mv_vals[{i}]"] = _arr(c), _arr(v)
+    elif A.mv_cols is not None:
+        d[f"{stem}.mv_cols"], d[f"{stem}.mv_vals"] = _arr(A.mv_cols), _arr(A.mv_vals)
+    if A.rt_rows is not None:
+        for i, (c, v) in enumerate(zip(A.rt_rows, A.rt_vals)):
+            d[f"{stem}.rt_rows[{i}]"], d[f"{stem}.rt_vals[{i}]"] = _arr(c), _arr(v)
+        d[f"{stem}.rt_inv"] = _arr(A.rt_inv)
+    d[f"{stem}.rt_zeros"] = int(A.rt_zeros)
 
 
 def flatten_device_problem(dp) -> dict:
@@ -16,18 +33,16 @@ def flatten_device_problem(dp) -> dict:
     A = dp.A
     if hasattr(A, "data"):
         d["A.data"] = _arr(A.data)
+    elif hasattr(A, "bands"):
+        for i, band in enumerate(A.bands):
+            d[f"A.bands[{i}]"] = _arr(band)
+        d["A.back"], d["A.wpages"] = int(A.back), int(A.wpages)
+        d["A.seg_lens"] = tuple(int(v) for v in A.seg_lens)
+        d["A.pages"] = int(A.pages) if A.pages else int(A.bands[0].shape[0])
+        if A.resid is not None:
+            _flatten_ell(d, "A.resid", A.resid)
     else:
-        d["A.rows"], d["A.vals"] = _arr(A.rows), _arr(A.vals)
-        if isinstance(A.mv_cols, tuple):
-            for i, (c, v) in enumerate(zip(A.mv_cols, A.mv_vals)):
-                d[f"A.mv_cols[{i}]"], d[f"A.mv_vals[{i}]"] = _arr(c), _arr(v)
-        elif A.mv_cols is not None:
-            d["A.mv_cols"], d["A.mv_vals"] = _arr(A.mv_cols), _arr(A.mv_vals)
-        if A.rt_rows is not None:
-            for i, (c, v) in enumerate(zip(A.rt_rows, A.rt_vals)):
-                d[f"A.rt_rows[{i}]"], d[f"A.rt_vals[{i}]"] = _arr(c), _arr(v)
-            d["A.rt_inv"] = _arr(A.rt_inv)
-        d["A.rt_zeros"] = int(A.rt_zeros)
+        _flatten_ell(d, "A", A)
     d["b"] = _arr(dp.b)
     d["perm"] = _arr(dp.perm)
     d["row_perm"] = None if dp.row_perm is None else _arr(dp.row_perm)
@@ -55,6 +70,8 @@ def small_instance(synthetic, kind: str, scenarios: int = 1):
         prob = synthetic.tiny_dense(seed=3, num_blocks=12, dim=5, m=64)
     elif kind == "ell":
         prob = synthetic.medium_sparse(seed=3, num_blocks=64, m=512)
+    elif kind == "banded":
+        prob = synthetic.medium_banded(seed=2, num_blocks=300, m=3000, spread=120)
     else:
         raise KeyError(kind)
     if scenarios > 1:
