@@ -260,43 +260,83 @@ def compare_pages(name, spec, band, v):
     return err
 
 
+def _note_path(name, ctx):
+    """Which of band_grmv's kernels the call just made took."""
+    if name == "band_grmv":
+        ctx.setdefault("grmv_paths", set()).add(
+            pagekernels.GRMV_PATHS[pagekernels.band_grmv_last_path()])
+
+
 def check_pages(name, spec, ctx):
-    """Every S x C x W of the grid, Mp a prime, plus strided operands."""
+    """Every S x C x W of the grid, Mp a prime, plus strided operands, widths
+    that are no multiple of 4 or smaller than a warp, row counts one off the
+    row tile, a single page, and operands that start off a 16-byte boundary.
+    For band_grmv every kernel behind the entry point must have been taken,
+    and each is also held against the einsum where the shape admits it."""
     gen = torch.Generator(device=DEV).manual_seed(11)
     errs, shapes = [], []
-    Mp = 37
-    for C in (1, 7, 52, 160):
-        for W in (128, 384, 512, 1024):
-            band = torch.randn((Mp, C, W), generator=gen, device=DEV)
-            K = band.shape[spec["contracted"]]
-            for S in (1, 2, 3, 4, 15, 16, 33):
-                v = torch.randn((S, Mp, K), generator=gen, device=DEV)
-                errs.append(compare_pages(name, spec, band, v))
-                shapes.append([S, Mp, C, W])
+
+    def case(band, v, label=None, every_kernel=True):
+        errs.append(compare_pages(name, spec, band, v))
+        _note_path(name, ctx)
+        shapes.append(label or [v.shape[0], *band.shape])
+        if name == "band_grmv" and every_kernel:
+            want = spec["plain"](band, v)
+            for path in range(len(pagekernels.GRMV_PATHS)):
+                got = pagekernels.band_grmv_on_path(band, v, path)
+                if got is not None:
+                    err = float((got - want).abs().max() / torch.clamp(want.abs().max(), min=1.0))
+                    check(err <= PAGE_ERR_LIMIT, f"{name}: kernel {pagekernels.GRMV_PATHS[path]} "
+                          f"differs by {err:.2e} at band {tuple(band.shape)}, S={v.shape[0]}")
+                    errs.append(err)
+
+    # (in the first, large group only the kernel the launcher picks is run)
+    for Mp, Cs, Ws, Ss in ((37, (1, 7, 52, 160), (128, 384, 512, 1024), (1, 2, 3, 4, 15, 16, 33)),
+                           (37, (31, 33), (130, 4, 512), (1, 4)),
+                           (1, (7, 33), (512, 130), (1, 3)),
+                           (5, (7,), (1536,), (16,))):  # too wide for the ring: the scalar kernel
+        for C in Cs:
+            for W in Ws:
+                band = torch.randn((Mp, C, W), generator=gen, device=DEV)
+                K = band.shape[spec["contracted"]]
+                for S in Ss:
+                    case(band, torch.randn((S, Mp, K), generator=gen, device=DEV),
+                         every_kernel=len(Ss) < 7)
     # operands as the layout hands them over: the segment of a PF-flat vector,
-    # and the sliding page windows of a padded residual
+    # and the sliding page windows of a padded residual; the base on a 16-byte
+    # boundary (offset 0 for the windows) and 1 and 2 floats off it
+    Mp = 37
     band = torch.randn((Mp, 7, 384), generator=gen, device=DEV)
-    if spec["contracted"] == 1:
-        x_pf = torch.randn((3, 11 + Mp * 7 + 5), generator=gen, device=DEV)
-        v = x_pf[:, 11:11 + Mp * 7].reshape(3, Mp, 7)
-    else:
-        rp = torch.randn((3, (Mp + 3) * PAGE), generator=gen, device=DEV)
-        v = rp.as_strided((3, Mp, 384), (rp.stride(0), PAGE, 1))
-    check(not v.is_contiguous(), f"{name}: the strided case is contiguous")
-    errs.append(compare_pages(name, spec, band, v))
-    shapes.append("strided view")
+    for off in (0, 1, 2):
+        if spec["contracted"] == 1:
+            x_pf = torch.randn((3, 12 + off + Mp * 7 + 5), generator=gen, device=DEV)
+            v = x_pf[:, 12 + off:12 + off + Mp * 7].reshape(3, Mp, 7)
+        else:
+            rp = torch.randn((3, (Mp + 3) * PAGE + 4), generator=gen, device=DEV)
+            v = rp.as_strided((3, Mp, 384), (rp.stride(0), PAGE, 1), off)
+        check(not v.is_contiguous(), f"{name}: the strided case is contiguous")
+        check(v.data_ptr() % 16 == 4 * off, f"{name}: the strided case is not {off} floats off")
+        case(band, v, f"strided view, base {off} floats off 16 bytes")
+    if name == "band_grmv":
+        taken = ctx["grmv_paths"]
+        check(taken == set(pagekernels.GRMV_PATHS),
+              f"{name}: the cases took only the kernels {sorted(taken)}")
     return max(errs), shapes, PAGE_ERR_LIMIT
 
 
 def measure_pages(name, spec, ctx):
     """The real band tensors of medium_banded, S = 1 and S = 4: all buckets of
     one product (one launch each).  ``ms`` etc. are the single-RHS numbers;
-    ``per_s`` has both."""
+    ``per_s`` has both.  band_grmv is also timed on the operand the solve hands
+    it (the page windows of a padded residual, a strided view) and through each
+    of its kernels."""
     errs, per_s = [], {}
+    grmv = name == "band_grmv"
     for S, dp in sorted(ctx["banded"].items()):
         A = dp.A
         gen = torch.Generator(device=DEV).manual_seed(13 + S)
-        ms = c_ms = plain_ms = lib_ms = bytes_ = ops = 0.0
+        ms = c_ms = plain_ms = lib_ms = win_ms = read_ms = bytes_ = ops = 0.0
+        path_ms = dict.fromkeys(pagekernels.GRMV_PATHS, 0.0)
         for band in A.bands:
             Mp, C, W = band.shape
             K = band.shape[spec["contracted"]]
@@ -309,12 +349,28 @@ def measure_pages(name, spec, ctx):
             c_ms += call_ms(lambda j: spec["fn"](band, v), reps=10)
             plain_ms += call_ms(lambda j: spec["plain"](band, v), reps=5)
             lib_ms += device_ms(lambda j: spec["library"](band, v), reps=10)
+            # what the card gives a PyTorch reduction that reads the band once
+            read_ms += device_ms(lambda j: band.sum(), reps=10)
             bytes_ += 4 * (band.numel() + v.numel() + S * Mp * out_w)
             ops += 2 * S * band.numel()
+            if grmv:
+                check(pagekernels.GRMV_PATHS[pagekernels.band_grmv_last_path()] == "ring",
+                      f"{name}: the band {tuple(band.shape)} did not take the ring kernel")
+                rp = torch.randn((S, (A.pages + A.wpages) * PAGE), generator=gen, device=DEV)
+                Rw = rp.as_strided((S, Mp, W), (rp.stride(0), PAGE, 1))
+                errs.append(compare_pages(name, spec, band, Rw))
+                win_ms += device_ms(lambda j: spec["fn"](band, Rw), reps=10)
+                for path, key in enumerate(pagekernels.GRMV_PATHS):
+                    path_ms[key] += device_ms(
+                        lambda j: pagekernels.band_grmv_on_path(band, v, path), reps=10)
         b_ms, by = bound(bytes_, ops)
         per_s[S] = {"S": S, "bands": [list(b.shape) for b in A.bands], "ms": ms,
                     "call_ms": c_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "bound_ms": b_ms, "bound_by": by}
+                    "band_sum_ms": read_ms, "bound_ms": b_ms, "bound_by": by}
+        if grmv:
+            per_s[S].update(windowed_ms=win_ms, ms_over_library=ms / lib_ms,
+                            windowed_ms_over_library=win_ms / lib_ms,
+                            share_of_bound=b_ms / ms, ms_by_kernel=path_ms)
     one = per_s[1]
     return dict(max_abs_err=max(errs), ms=one["ms"], plain_ms=one["plain_ms"],
                 bound_ms=one["bound_ms"], bound_by=one["bound_by"],
@@ -331,28 +387,83 @@ def _chunk_inputs(dp):
     return (dp.A.data, dp.b, feasible_init(dp)[0].contiguous(), bk.sizes, bk.radius, t0)
 
 
+def random_chunk(m, B, w, seed):
+    """A dense random problem for the fused chunk: ragged widths in 1..w, a
+    radius per block, x0 the centre of each block's simplex, t0 just under
+    1 / ||A||^2."""
+    rng = np.random.default_rng(seed)
+    widths = rng.integers(1, w + 1, size=B).astype(np.int32)
+    radius = rng.uniform(0.25, 1.0, size=B).astype(np.float32)
+    mask = np.arange(w)[None, :] < widths[:, None]
+    A = (rng.standard_normal((m, B * w)) / np.sqrt(m)).astype(np.float32)
+    A *= mask.reshape(-1)[None, :]  # padding slots carry no column
+    x_true = rng.random((B, w)) * mask
+    x_true *= (radius / x_true.sum(1))[:, None]
+    b = (A @ x_true.reshape(-1) + 0.05 * rng.standard_normal(m)).astype(np.float32)
+    x0 = (mask * (radius / widths)[:, None]).astype(np.float32)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+    v = rng.standard_normal(B * w).astype(np.float32)
+    for _ in range(40):  # power iteration for ||A||^2, on the host
+        v = A.T @ (A @ (v / np.linalg.norm(v)))
+    t0 = 1.0 / (1.05 * float(np.linalg.norm(v)))
+    return (to(A), to(b), to(x0), to(widths), to(radius), t0), to(mask.astype(np.float32))
+
+
+# (m, B, w, steps): widths 1, 4, 10, 33 and 128; fewer rows than blocks and no
+# multiple of the grid; B*w no multiple of 4; one too large for the
+# resident form (A of 32 MB), and one so tall that a block's rows of r and Ad
+# do not fit shared memory either.  Each is held twice.  Over 15 (10) steps
+# under every limit: these well-conditioned solves arrive after 25-30, and
+# from there d is small, g.d cancels and the step length is rounding noise
+# (two plain fp32 runs that sum the rows in another order jump from 1e-7 to
+# 2e-5 apart in x there).  And over CHUNK_DEPTH steps, the depth of a launch
+# on the solve path, under every limit that stays well conditioned there: the
+# f-trace, the bit-for-bit repeat, feasibility and the descent of f; the
+# distance in x is reported, not held.  tiny_dense is held over 200 in full.
+CHUNK_SHAPES = ((37, 9, 1, 15), (1000, 61, 4, 15), (1531, 50, 10, 15), (1000, 33, 10, 15),
+                (1000, 21, 33, 15), (37, 3, 10, 15), (1531, 7, 128, 15), (4096, 16, 128, 10),
+                (900000, 2, 4, 10))
+CHUNK_DEPTH = 100
+
+
+def compare_chunk(name, label, fn, plain, args, mask, steps, expected=None, hold_x=True):
+    """``steps`` steps against the plain loop (or its result ``expected``)
+    under the limits, twice bit for bit, and the structure of x.  Without
+    ``hold_x`` the distance in x is only reported.  Returns (x error, trace
+    error)."""
+    radius = args[4]
+    x, f = fn(*args, steps)
+    x2, f2 = fn(*args, steps)
+    torch.cuda.synchronize()
+    xp, fp = expected if expected is not None else plain(*args, steps)
+    check(x.shape == xp.shape and f.shape == (steps,), f"{name} {label}: wrong output shapes")
+    check(bool(torch.isfinite(x).all() and torch.isfinite(f).all()),
+          f"{name} {label}: non-finite output")
+    check(bool(torch.equal(f, f2) and torch.equal(x, x2)),
+          f"{name} {label}: two launches on the same input differ")
+    rel = float(((f - fp).abs() / torch.clamp(fp.abs(), min=1e-9)).max())
+    check(rel <= CHUNK_TRACE_LIMIT, f"{name} {label}: f-trace differs by {rel:.2e} relative")
+    err = float((x - xp).abs().max())
+    check(not hold_x or err <= CHUNK_X_LIMIT, f"{name} {label}: x differs by {err:.2e}")
+    check(float(x.min()) >= 0.0, f"{name} {label}: negative entry")
+    check(float((x * (1 - mask)).abs().max()) == 0.0, f"{name} {label}: padding slot not zero")
+    sums = (x * mask).sum(-1)
+    check(float(((sums - radius).abs() / radius).max()) <= 1e-5,
+          f"{name} {label}: block sums leave the radius")
+    check(bool((f[1:] <= f[:-1] * (1 + 1e-5)).all()), f"{name} {label}: the objective rose")
+    return err, rel
+
+
 def check_chunk(name, spec, ctx):
-    """200 steps on tiny_dense against the plain loop; twice, bit for bit."""
+    """200 steps on tiny_dense against the plain loop, twice, bit for bit; then
+    ragged random problems of other widths and row counts, one of them too
+    large for the resident form, each at a small step count and at the depth
+    of a launch on the solve path.  Where the kernel takes the resident form
+    the streaming form is held against the plain loop too."""
     dp = ctx["tiny"]
     args = _chunk_inputs(dp)
-    bk = dp.buckets[0]
-    x, f = spec["fn"](*args, 200)
-    x2, f2 = spec["fn"](*args, 200)
-    torch.cuda.synchronize()
-    xp, fp = spec["plain"](*args, 200)
-    check(x.shape == xp.shape and f.shape == (200,), f"{name}: wrong output shapes")
-    check(bool(torch.isfinite(x).all() and torch.isfinite(f).all()), f"{name}: non-finite output")
-    check(bool(torch.equal(f, f2) and torch.equal(x, x2)),
-          f"{name}: two launches on the same input differ")
-    rel = float(((f - fp).abs() / torch.clamp(fp.abs(), min=1e-9)).max())
-    check(rel <= CHUNK_TRACE_LIMIT, f"{name}: f-trace differs by {rel:.2e} relative")
-    err = float((x - xp).abs().max())
-    check(err <= CHUNK_X_LIMIT, f"{name}: x differs by {err:.2e}")
-    check(float(x.min()) >= 0.0, f"{name}: negative entry")
-    sums = (x * bk.mask).sum(-1)
-    check(float(((sums - bk.radius).abs() / bk.radius).max()) <= 1e-5,
-          f"{name}: block sums leave the radius")
-    check(bool((f[1:] <= f[:-1] * (1 + 1e-5)).all()), f"{name}: the objective rose")
+    err, rel = compare_chunk(name, "tiny_dense", spec["fn"], spec["plain"], args,
+                             dp.buckets[0].mask, 200)
     # one step, and a step count that is no multiple of anything
     for steps in (1, 7):
         xs, fs = spec["fn"](*args, steps)
@@ -360,25 +471,79 @@ def check_chunk(name, spec, ctx):
         check(float((xs - xq).abs().max()) <= CHUNK_X_LIMIT
               and float(((fs - fq).abs() / fq.abs()).max()) <= CHUNK_TRACE_LIMIT,
               f"{name}: {steps} steps differ from the plain loop")
-    ctx["chunk_err"] = {"x_abs": err, "trace_rel": rel}
-    return err, [list(dp.A.data.shape), list(x.shape), 200], CHUNK_X_LIMIT
+    blocks = torch.cuda.get_device_properties(DEV).multi_processor_count
+    forms = set()
+    streaming = lambda *a: chunkkernel.pgd_chunk_variant(*a, resident=False)
+    cases = [("tiny_dense", args, dp.buckets[0].mask, 200,
+              (dp.A.data.shape[0], *dp.buckets[0].mask.shape))]
+    for i, (m, B, w, steps) in enumerate(CHUNK_SHAPES):
+        rargs, mask = random_chunk(m, B, w, seed=50 + i)
+        cases.append((f"m={m} B={B} w={w}", rargs, mask, steps, (m, B, w)))
+    shapes, deep = [], {"x_abs": 0.0, "trace_rel": 0.0}
+    for label, cargs, mask, steps, (m, B, w) in cases:
+        plan = chunkkernel.chunk_plan(m, B, w, blocks)
+        form = "resident" if plan["resident"] else "streaming"
+        forms.add(form)
+        forms.add("state in shared memory" if plan["local_state"] else "state in scratch")
+        runs = [(form, spec["fn"])] + ([("streaming", streaming)] if plan["resident"] else [])
+        for depth in (steps,) if label == "tiny_dense" else (steps, CHUNK_DEPTH):
+            held = depth == steps
+            expected = spec["plain"](*cargs, depth)
+            for run_form, fn in runs:
+                e, r = compare_chunk(name, f"{label}, {depth} steps ({run_form} form)", fn,
+                                     spec["plain"], cargs, mask, depth, expected, hold_x=held)
+                shapes.append({"m": m, "n": B * w, "w": w, "steps": depth, "form": run_form,
+                               "x_abs_err": e, "trace_rel_err": r, "x_held": held})
+                if held:
+                    err, rel = max(err, e), max(rel, r)
+                else:
+                    deep = {"x_abs": max(deep["x_abs"], e), "trace_rel": max(deep["trace_rel"], r)}
+    check(forms == {"resident", "streaming", "state in shared memory", "state in scratch"},
+          f"{name}: the cases took only the forms {sorted(forms)}")
+    ctx["chunk_err"] = {"x_abs": err, "trace_rel": rel, "deep": deep, "cases": shapes}
+    return err, shapes, CHUNK_X_LIMIT
 
 
 def measure_chunk(name, spec, ctx, steps=100):
-    """One launch of ``steps`` iterations on tiny_dense, as solve makes it."""
+    """One launch of ``steps`` iterations on tiny_dense, as solve makes it;
+    then what a step is made of: the resident and the streaming form, other
+    block counts, grid.sync() alone, and the clock sums of block 0 by phase."""
     dp = ctx["tiny"]
     args = _chunk_inputs(dp)
     m, n = dp.A.data.shape
     # a cooperative launch is timed between events, not in a graph; at a
-    # millisecond a launch the host's share is nothing
+    # fraction of a millisecond a launch the host's share is small
     ms = call_ms(lambda j: spec["fn"](*args, steps), reps=10)
     plain_ms = call_ms(lambda j: spec["plain"](*args, steps), reps=2, warm=1)
     bytes_ = 4 * (m * n + 2 * m + 2 * n + n + steps)  # A, b, x0, widths+radius, x, f
     ops = steps * (4 * m * n + 10 * n + 6 * m)
     b_ms, by = bound(bytes_, ops)
+
+    variant = chunkkernel.pgd_chunk_variant
+    blocks = torch.cuda.get_device_properties(DEV).multi_processor_count
+    check(chunkkernel.chunk_plan(m, *dp.buckets[0].mask.shape, blocks)["resident"],
+          f"{name}: tiny_dense does not take the resident form")
+    # (the streaming form at this shape was held against the plain loop by check_chunk)
+    forms = {form: call_ms(lambda j: variant(*args, steps, resident=res), reps=10) / steps
+             for form, res in (("resident", True), ("streaming", False))}
+    by_blocks = {nb: call_ms(lambda j: variant(*args, steps, resident=True, blocks=nb),
+                             reps=10) / steps for nb in (33, 66, blocks)}
+    n_bar = 3000
+    barrier_us = 1e3 * chunkkernel.grid_barriers_ms(n_bar, blocks, DEV) / n_bar
+    clk = variant(*args, steps, resident=True, clocks=True)[2].double()
+    shares = dict(zip(chunkkernel.CLOCK_SLOTS, (clk / clk.sum()).tolist()))
+    # the streaming form on an A that does not fit the resident one
+    big, _ = random_chunk(4096, 16, 128, seed=57)
+    big_ms = call_ms(lambda j: spec["fn"](*big, 20), reps=3, warm=1) / 20
+    deep = ctx["chunk_err"]["deep"]
     return dict(max_abs_err=ctx["chunk_err"]["x_abs"], trace_rel_err=ctx["chunk_err"]["trace_rel"],
+                x_abs_err_at_depth=deep["x_abs"], trace_rel_err_at_depth=deep["trace_rel"],
+                depth=CHUNK_DEPTH,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None,
-                steps_per_launch=steps, ms_per_step=ms / steps)
+                steps_per_launch=steps, ms_per_step=ms / steps, bound_ms_per_step=b_ms / steps,
+                ms_per_step_by_form=forms, ms_per_step_by_blocks=by_blocks,
+                grid_sync_us=barrier_us, clock_shares_block0=shares,
+                streaming_4096x2048_ms_per_step=big_ms)
 
 
 # Every kernel brings its wrapper, its plain version, its cases (check) and
@@ -437,13 +602,15 @@ def phase_kernels(ctx):
     JSON line but one."""
     report = {}
     for name, spec in KERNELS.items():
+        t0 = time.perf_counter()
         err, shapes, limit = spec["check"](name, spec, ctx)
         nums = spec["measure"](name, spec, ctx)
         nums["max_abs_err"] = max(err, nums["max_abs_err"])
         report[name] = {"name": name, "route": "cuda", "source": spec["source"],
                         "replaces": spec["replaces"], "launches": 0, **nums}
         emit("kernels", kernel=name, limit=limit, cases=len(shapes),
-             shapes_checked=shapes if len(shapes) <= 24 else shapes[:6] + ["..."] + shapes[-2:],
+             secs=round(time.perf_counter() - t0, 1),
+             shapes_checked=shapes if len(shapes) <= 40 else shapes[:6] + ["..."] + shapes[-2:],
              **nums)
     return report
 
@@ -653,7 +820,7 @@ def main():
     report = phase_kernels(ctx)
     if args.stop_after == "kernels":
         sys.exit(3)
-    launches = phase_solve("solve_exact", prob, dp, "exact", 300, ("proj_simplex_rows",))
+    launches = phase_solve("solve_exact", prob, dp, "exact", 200, ("proj_simplex_rows",))
     report["proj_simplex_rows"]["launches"] = launches["proj_simplex_rows"]
     launches = phase_solve("solve_pava", prob, dp, "pava", 200, ("pava_rows",))
     report["pava_rows"]["launches"] = launches["pava_rows"]

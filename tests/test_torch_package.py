@@ -75,6 +75,30 @@ def test_importing_every_module_touches_no_cuda_and_builds_nothing():
         assert os.path.exists(os.path.join(PKG, "csrc", src)), src
 
 
+def test_every_c_entry_point_a_wrapper_names_exists_in_csrc():
+    """The wrappers bind by name through ctypes: a name that no source defines
+    would only fail on the card.  And the build lists every file of csrc/, so
+    that no stale library is loaded after an edit."""
+    from bsls_tpu_torch.ops import cudalib
+
+    csrc = os.path.join(PKG, "csrc")
+    on_disk = sorted(f for f in os.listdir(csrc) if os.path.isfile(os.path.join(csrc, f)))
+    assert on_disk == sorted(cudalib._SOURCES + cudalib._HEADERS)
+    defined = set()
+    for src in cudalib._SOURCES:
+        with open(os.path.join(csrc, src)) as fh:
+            defined |= set(re.findall(r'extern "C" \w+ (bsls_\w+)\(', fh.read()))
+    named = set()
+    for mod in ("rowkernels", "pagekernels", "chunkkernel"):
+        with open(os.path.join(PKG, "ops", mod + ".py")) as fh:
+            named |= set(re.findall(r"\b(bsls_[a-z_0-9]+)\b", fh.read()))
+    named = {n for n in named if not n.startswith("bsls_tpu")}  # the packages' names
+    assert len(named) >= 10
+    assert named <= defined, sorted(named - defined)
+    # and nothing is exported that no wrapper reaches
+    assert defined <= named, sorted(defined - named)
+
+
 def test_sources_name_no_jax_import():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|bsls_tpu)(\.|\s|$)", re.M)
     assert os.path.exists(os.path.join(REPO, "chip_smoke.py"))
