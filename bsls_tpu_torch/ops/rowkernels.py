@@ -16,9 +16,14 @@ import torch
 
 from . import cudalib
 
-__all__ = ["proj_simplex_rows", "pava_rows", "MAX_WIDTH"]
+__all__ = ["proj_simplex_rows", "pava_rows", "MAX_WIDTH", "PAVA_FORMS"]
 
 MAX_WIDTH = 128  # kMaxWidth in csrc/rows_common.cuh
+# The fit that each templated width takes in csrc/pava_rows.cu (the switch of
+# bsls_pava_rows); every other width up to MAX_WIDTH takes the generic kernel,
+# which runs the stack on the row in device memory.
+PAVA_FORMS = {1: "minimax", 2: "minimax", 4: "minimax", 8: "minimax", 16: "minimax",
+              32: "minimax"}
 
 
 def _fn(fn_name):
@@ -48,6 +53,8 @@ def _check(name, v, widths, radius):
                          f"{tuple(widths.shape)} and {tuple(radius.shape)}")
     if not 1 <= w <= MAX_WIDTH:
         raise ValueError(f"{name}: width {w} outside 1..{MAX_WIDTH}")
+    if Bk >= 2 ** 31:
+        raise ValueError(f"{name}: {Bk} blocks, the kernels take fewer than 2**31")
     if not (v.is_contiguous() and widths.is_contiguous() and radius.is_contiguous()):
         raise ValueError(f"{name}: tensors must be contiguous")
     return Bk, w

@@ -23,11 +23,19 @@ Every phase prints one JSON line; a failed phase raises and the script exits
 non-zero without the result line.  The last line is ``{"ok": true, "device":
 {...}}``, the line before it lists every kernel with its launches on its path,
 its error, its time, the plain version's time, its bound and, where one
-PyTorch call computes the same function, that call's time.
+PyTorch call computes the same function, that call's time.  ``pava_rows`` is
+also held and timed on the inputs that a short pava solve of medium x 128
+hands it (captured before the kernels phase), with the share of rows that
+pool, and on rows with a NaN.  With ``--ptxas`` the build phase fails unless
+the PAVA kernels of widths 4 and 8 keep everything in registers (no stack
+frame, no spills).
 """
 import argparse
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -40,7 +48,7 @@ if not torch.cuda.is_available():
 
 import bsls_tpu_torch as bt  # noqa: E402
 from bsls_tpu_torch import native  # noqa: E402
-from bsls_tpu_torch.ops import chunkkernel, cudalib, pagekernels, rowkernels  # noqa: E402
+from bsls_tpu_torch.ops import chunkkernel, cudalib, isotonic, pagekernels, rowkernels  # noqa: E402
 from bsls_tpu_torch.ops.banded import PAGE, DeviceBanded  # noqa: E402
 from bsls_tpu_torch.ops.isotonic import pava_padded  # noqa: E402
 from bsls_tpu_torch.ops.layout import feasible_init  # noqa: E402
@@ -53,6 +61,7 @@ SCENARIOS = 128
 # the tensor cores; the bound of a kernel is stated against these
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+L2_BYTES = 50e6
 # a row kernel agrees with its plain version within this, times the largest radius
 ROW_ERR_LIMIT = 3e-5
 # a page kernel within this, times the largest entry of the result (at least
@@ -97,16 +106,43 @@ def phase_device():
          matmul_precision=torch.get_float32_matmul_precision())
 
 
+def pava_resources(log):
+    """ptxas's report on the fixed-width PAVA kernels: {"<w>": {stack frame,
+    spill stores, spill loads, registers}}."""
+    out = {}
+    pat = (r"Function properties for \S*pava_rows_fixedILi(\d+)E\S*\s+(\d+) bytes "
+           r"stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads"
+           r"(?:\s+ptxas info\s+: Used (\d+) registers)?")
+    for w, frame, st, ld, regs in re.findall(pat, log):
+        out[w] = {
+            "stack_frame": int(frame), "spill_stores": int(st), "spill_loads": int(ld),
+            "registers": int(regs) if regs else None}
+    return out
+
+
 def phase_build(ptxas):
     t0 = time.perf_counter()
     host_native = native.native_available()  # builds the host library with g++
     t_native = time.perf_counter() - t0
     t0 = time.perf_counter()
-    lib = cudalib.build_library(verbose=ptxas)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        lib = cudalib.build_library(verbose=ptxas)
+    print(log.getvalue(), end="", flush=True)
     t_cuda = time.perf_counter() - t0
     emit("build", host_layout_engine="native" if host_native else "numpy fallback",
          native_secs=round(t_native, 2), cuda_library=lib.split("bsls_tpu_torch/")[-1],
          cuda_secs=round(t_cuda, 2))
+    if ptxas:
+        # the widths of the solve path keep their row and its fit in
+        # registers: no stack frame, no spills
+        res = pava_resources(log.getvalue())
+        for w in ("4", "8"):
+            r = res.get(w)
+            check(r is not None, f"ptxas: no report on pava_rows_fixed<{w}>")
+            check(r["stack_frame"] == r["spill_stores"] == r["spill_loads"] == 0,
+                  f"ptxas: pava_rows_fixed<{w}> uses local memory: {r}")
+        emit("ptxas", pava_rows_fixed=res)
 
 
 # ------------------------------------------------------------------ timing
@@ -210,36 +246,125 @@ def check_rows(name, spec, ctx):
             v, widths, radius = random_rows(lead, 1003, w, seed=100 * w + len(lead))
             errs.append(compare_rows(name, spec, v, widths, radius))
             shapes.append(list(v.shape))
+    if spec.get("nan_widths"):
+        errs.append(check_nan_rows(name, spec))
     return max(errs), shapes, ROW_ERR_LIMIT
 
 
+def check_nan_rows(name, spec):
+    """Rows with a NaN among their first widths[b] slots, and rows with one in
+    a padding slot, against the plain version: the same slots NaN, the rest
+    within the row limit."""
+    errs = []
+    for w in spec["nan_widths"]:
+        v, widths, radius = random_rows((3,), 1003, w, seed=900 + w)
+        rng = np.random.default_rng(w)
+        y, n = v.cpu().numpy(), widths.cpu().numpy()
+        for b in range(0, 1003, 5):
+            if n[b] > 0:  # a NaN among the fitted slots of scenario b % 3
+                y[b % 3, b, rng.integers(0, n[b])] = np.nan
+            if n[b] < w:  # a NaN in a padding slot of every scenario
+                y[:, b, rng.integers(n[b], w)] = np.nan
+        v = torch.from_numpy(y).to(DEV)
+        got = spec["fn"](v, widths, radius)
+        torch.cuda.synchronize()
+        want = spec["plain"](v, widths, radius)
+        nan = torch.isnan(want)
+        check(bool(nan.any()) and torch.equal(torch.isnan(got), nan),
+              f"{name}: NaN slots differ from the plain version at width {w}")
+        errs.append(float((got[~nan] - want[~nan]).abs().max() / radius.max()))
+        check(errs[-1] <= ROW_ERR_LIMIT, f"{name}: rows around the NaN rows differ from the "
+              f"plain version by {errs[-1]:.2e} x max radius at width {w}")
+    return max(errs)
+
+
+def inputs_in_turn(one_bytes):
+    """How many inputs of ``one_bytes`` a timing cycles through so that
+    together they exceed the L2 cache: every launch then finds its rows in
+    device memory, as the solve's fresh tensors of a bucket would."""
+    return max(4, -(-int(1.2 * L2_BYTES) // one_bytes))
+
+
+def capture_pava_inputs(dp, iters=40):
+    """The tensors that a short ``pava`` solve of ``dp`` hands
+    ``isotonic.pava_bounded``, by bucket shape, in the order of the iterations.
+    The function is wrapped here for the capture only."""
+    seen = {}
+    plain_fn = isotonic.pava_bounded
+
+    def spy(y, widths, radius):
+        seen.setdefault(tuple(y.shape), []).append(y.clone())
+        return plain_fn(y, widths, radius)
+
+    isotonic.pava_bounded = spy
+    try:
+        bt.solve(dp, method="pgd", line_search="pava", tol=0.0, max_iter=iters, chunk=iters)
+    finally:
+        isotonic.pava_bounded = plain_fn
+    check(len(seen) == len(dp.buckets) and all(len(v) == iters for v in seen.values()),
+          f"capture: {[len(v) for v in seen.values()]} pava inputs for {len(dp.buckets)} buckets "
+          f"and {iters} iterations")
+    return seen
+
+
+def pooling_share(vs, widths):
+    """Share of rows with at least one order violation among their first
+    ``widths`` slots: the rows on which pool-adjacent-violators merges."""
+    inner = torch.arange(1, vs[0].shape[-1], device=DEV) < widths[:, None]
+    return float(sum(((v[..., 1:] < v[..., :-1]) & inner).any(-1).float().mean()
+                     for v in vs) / len(vs))
+
+
 def measure_rows(name, spec, ctx):
-    """One application to all buckets of medium x 128 (one launch each)."""
+    """One application to all buckets of medium x 128 (one launch each); for
+    PAVA also on the inputs a pava solve of that instance hands the kernel."""
     dp = ctx["medium"]
     ms = plain_ms = bytes_ = ops = 0.0
     errs, per_bucket = [], []
+    solve_inputs = ctx.get("pava_inputs") if name == "pava_rows" else None
     for i, bk in enumerate(dp.buckets):
         # the tensors the main path hands the kernel: (S, Bk, w), the bucket's
         # own sizes (sizes - 1 for the z-space fit) and radii
         widths = spec["widths_of"](bk)
+        shape = (SCENARIOS,) + tuple(bk.mask.shape)
         gen = torch.Generator(device=DEV).manual_seed(7 + i)
-        # four inputs in turn: together they exceed the 50 MB L2 cache, so
-        # every launch finds its rows in device memory
-        vs = [torch.randn((SCENARIOS,) + tuple(bk.mask.shape), generator=gen, device=DEV)
-              * 2 * bk.radius[:, None] for _ in range(4)]
+        n_in = inputs_in_turn(4 * int(np.prod(shape)))
+        vs = [torch.randn(shape, generator=gen, device=DEV) * 2 * bk.radius[:, None]
+              for _ in range(n_in)]
         errs.append(compare_rows(name, spec, vs[0], widths, bk.radius))
-        launch = lambda j: spec["fn"](vs[j % 4], widths, bk.radius)
+        launch = lambda j: spec["fn"](vs[j % n_in], widths, bk.radius)
         k_ms, c_ms = device_ms(launch), call_ms(launch)
-        p_ms = call_ms(lambda j: spec["plain"](vs[j % 4], widths, bk.radius), reps=4)
+        p_ms = call_ms(lambda j: spec["plain"](vs[j % n_in], widths, bk.radius), reps=4)
         rows, w = vs[0].numel() // bk.width, bk.width
         b_bytes = 2 * 4 * rows * w + 8 * bk.mask.shape[0]
         b_ops = rows * spec["ops_per_row"](w)
-        per_bucket.append({"shape": list(vs[0].shape), "ms": k_ms, "call_ms": c_ms,
-                           "plain_ms": p_ms, "bound_ms": bound(b_bytes, b_ops)[0]})
+        b_ms = bound(b_bytes, b_ops)[0]
+        entry = {"shape": list(shape), "inputs_in_turn": n_in, "ms": k_ms, "call_ms": c_ms,
+                 "plain_ms": p_ms, "bound_ms": b_ms, "share_of_bound": b_ms / k_ms}
+        if solve_inputs is not None:
+            entry.update(pooling_share=pooling_share(vs, widths))
+            # iterations spread over the capture, enough to exceed the L2
+            seq = solve_inputs[shape]
+            pick = np.linspace(0, len(seq) - 1, min(n_in, len(seq))).round().astype(int)
+            ss = [seq[j] for j in pick]
+            check(len(ss) == n_in, f"{name}: {len(ss)} captured inputs, {n_in} wanted")
+            for v in ss:
+                errs.append(compare_rows(name, spec, v, widths, bk.radius))
+            s_ms = device_ms(lambda j: spec["fn"](ss[j % n_in], widths, bk.radius))
+            entry.update(solve_inputs_ms=s_ms, solve_inputs_share_of_bound=b_ms / s_ms,
+                         solve_inputs_pooling_share=pooling_share(ss, widths),
+                         solve_iterations=[int(j) for j in pick],
+                         solve_inputs_max_abs=float(max(v.abs().max() for v in ss)),
+                         max_radius=float(bk.radius.max()))
+        per_bucket.append(entry)
         ms, plain_ms, bytes_, ops = ms + k_ms, plain_ms + p_ms, bytes_ + b_bytes, ops + b_ops
     b_ms, by = bound(bytes_, ops)
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=None, per_bucket=per_bucket)
+    out = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+               library_ms=None, per_bucket=per_bucket)
+    if solve_inputs is not None:
+        out.update(solve_inputs_ms=sum(e["solve_inputs_ms"] for e in per_bucket),
+                   form_by_width={str(w): f for w, f in rowkernels.PAVA_FORMS.items()})
+    return out
 
 
 # ------------------------------------------------ phase 3: the page kernels
@@ -569,8 +694,13 @@ KERNELS = {
         replaces="bsls_tpu/ops/pallas/pava_kernel.py:132",
         check=check_rows, measure=measure_rows, structure=_pava_structure,
         widths_of=lambda bk: torch.clamp(bk.sizes - 1, min=0),
-        # per row: at most 2w pushes/pops of ~5 operations, ~4 more per slot
-        ops_per_row=lambda w: 14 * w,
+        # the fixed-width kernels carry a NaN over a row's fitted slots
+        nan_widths=(4, 8, 32),
+        # per row, minimax form: w(w+1)/2 segments of an add, a multiply, a max
+        # and a min (less the w adds and w maxes of the first segments), 4 more
+        # per slot; stack form: at most 2w pushes/pops of ~5, ~4 more per slot
+        ops_per_row=lambda w: (2 * w * w + 4 * w if rowkernels.PAVA_FORMS.get(w) == "minimax"
+                               else 14 * w),
     ),
     "band_zmv": dict(
         fn=pagekernels.band_zmv, plain=pagekernels.band_zmv_plain,
@@ -816,6 +946,7 @@ def main():
             banded_base, S)
     ctx["tiny_prob"] = bt.synthetic.tiny_dense(seed=0)
     ctx["tiny"] = bt.prepare(ctx["tiny_prob"], device=DEV)
+    ctx["pava_inputs"] = capture_pava_inputs(dp)
 
     report = phase_kernels(ctx)
     if args.stop_after == "kernels":

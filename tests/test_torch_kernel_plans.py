@@ -1,9 +1,10 @@
-"""What can be held without a card of the two redesigned kernels of the
-PyTorch port: the Python statements of the rules by which the C launchers pick
-a kernel and size a launch (``pagekernels.grmv_path``, ``chunkkernel.chunk_plan``)
-at the shapes ``chip_smoke.py`` runs on the card; the recurrence the fused chunk
-now follows (gradient carried from step to step) against the plain loop; and
-the plain loop against the reference's kernel on a ragged-width instance."""
+"""What can be held without a card of the redesigned kernels of the PyTorch
+port: the Python statements of the rules by which the C launchers pick a kernel
+or a form and size a launch (``pagekernels.grmv_path``, ``chunkkernel.chunk_plan``,
+``rowkernels.PAVA_FORMS``) at the shapes ``chip_smoke.py`` runs on the card; the
+recurrence the fused chunk now follows (gradient carried from step to step)
+against the plain loop; and the plain loop against the reference's kernel on a
+ragged-width instance."""
 import os
 import re
 
@@ -18,7 +19,7 @@ import bsls_tpu_torch as bt
 import bsls_tpu_torch.ops.layout as TL
 from bsls_tpu.ops.pallas.megastep_kernel import pgd_chunk_fused, split_slots
 from bsls_tpu_torch.models import synthetic as tsyn
-from bsls_tpu_torch.ops import chunkkernel, cudalib, pagekernels
+from bsls_tpu_torch.ops import chunkkernel, cudalib, pagekernels, rowkernels
 from bsls_tpu_torch.ops.chunkkernel import (RESIDENT_MAX_BYTES, STATE_MAX_BYTES, chunk_plan,
                                             pgd_chunk_carried_plain, pgd_chunk_plain)
 from bsls_tpu_torch.ops.pagekernels import GRMV_PATHS, grmv_path
@@ -205,3 +206,21 @@ def test_constants_agree_with_the_cuda_sources():
     assert pages["kWindowSlots"] == pagekernels._WINDOW_SLOTS
     assert pages["kMaxTileRows"] == pagekernels._MAX_TILE_ROWS
     assert pages["kRingBarrierBytes"] == pagekernels._RING_BARRIER_BYTES
+
+
+def _pava_source():
+    with open(os.path.join(CSRC, "pava_rows.cu")) as fh:
+        return fh.read()
+
+
+def test_pava_forms_agree_with_the_cuda_switch():
+    """``rowkernels.PAVA_FORMS`` states the widths the switch of
+    ``bsls_pava_rows`` sends to the fixed-width kernel, and that kernel's fit
+    is the minimax form, the only one it has."""
+    src = _pava_source()
+    launcher = src[src.index('extern "C" int bsls_pava_rows('):]
+    cases = re.findall(r"BSLS_CASE\((\d+)\)\n", launcher)
+    assert sorted(int(w) for w in cases) == sorted(rowkernels.PAVA_FORMS)
+    assert set(rowkernels.PAVA_FORMS.values()) == {"minimax"}
+    kernel = re.search(r"pava_rows_fixed\(.*?\n\}", src, re.S).group(0)
+    assert re.findall(r"fit_\w+", kernel) == ["fit_minimax"]

@@ -82,6 +82,152 @@ def test_pava_blocks_numpy_reference():
     assert out.min() >= 0.0 and out.max() <= 1.0
 
 
+# Inputs of the kinds the kernel meets, made from a seed with numpy: (y, widths,
+# radius) for a (B, w) bucket.  "solve_like" is the trial point z - t D^T g of a
+# z-space step on a seeded least-squares instance, through the reference's
+# z-transform (widths = block sizes - 1, as the solver passes them); "plateaus"
+# has runs of equal values and segments with exactly tied means; "large" has
+# values of a few hundred with radii of the same size, as the solve path gives
+# the kernel; "full_and_tiny" has every row at n = w, 0 and 1.
+PAVA_KINDS = ["solve_like", "plateaus", "large", "full_and_tiny"]
+PAVA_WIDTHS = [1, 2, 4, 8, 16, 32]
+
+
+def _pava_inputs(kind, w, B=37, seed=11):
+    rng = np.random.default_rng([seed, w, PAVA_KINDS.index(kind)])
+    radius = rng.uniform(0.5, 3.0, size=B).astype(np.float32)
+    widths = rng.integers(0, w + 1, size=B).astype(np.int32)
+    if kind == "solve_like":
+        sizes = rng.integers(1, w + 1, size=B)
+        mask = (np.arange(w)[None, :] < sizes[:, None]).astype(np.float32)
+        n = int(sizes.sum())
+        m = 3 * n
+        A = rng.standard_normal((m, n)) / np.sqrt(m)
+        x = np.zeros((B, w))
+        for i, k in enumerate(sizes):
+            x[i, :k] = radius[i] * rng.dirichlet(np.ones(k))
+        b = A @ x[mask > 0] + 0.1 * rng.standard_normal(m)
+        g = np.zeros((B, w))
+        g[mask > 0] = A.T @ (A @ x[mask > 0] - b)
+        z = np.asarray(JZ.x_to_z_padded(jnp.asarray(x, jnp.float32), jnp.asarray(mask)))
+        gz = np.asarray(JZ.dz_adjoint_padded(jnp.asarray(g, jnp.float32), jnp.asarray(mask)))
+        y = (z - 4.0 * w * w * gz).astype(np.float32)  # a trial step of 1 / L_z, L_z ~ w^2
+        widths = np.maximum(sizes - 1, 0).astype(np.int32)
+    elif kind == "plateaus":
+        y = rng.integers(-2, 3, size=(B, w)).astype(np.float32) * 0.5 * radius[:, None]
+        y[: B // 4] = 0.5 * radius[: B // 4, None]  # constant rows
+        if w >= 3:  # [2a, 0, a, ...]: the first two pool to mean a, tied with the third
+            y[B // 4: B // 2, :3] = np.array([2.0, 0.0, 1.0], np.float32) * radius[B // 4: B // 2, None]
+    elif kind == "large":
+        radius = rng.uniform(100.0, 400.0, size=B).astype(np.float32)
+        y = (rng.standard_normal((B, w)) * 150.0 + 0.5 * radius[:, None]).astype(np.float32)
+    else:
+        y = (rng.standard_normal((B, w)) * 2).astype(np.float32) * radius[:, None]
+        widths[:] = w
+        widths[1::3] = 0
+        widths[2::3] = min(1, w)
+    return y, widths, radius
+
+
+def _pava_f64(y, widths, radius):
+    out = np.zeros(y.shape)
+    for i, n in enumerate(widths):
+        if n:
+            out[i, :n] = pava_np(y[i, :n].astype(np.float64), lo=0.0, hi=float(radius[i]))
+    return out
+
+
+def _minimax_form_f32(y, widths, radius):
+    """The arithmetic of the minimax form of csrc/pava_rows.cu, restated in
+    numpy float32 in the kernel's order: slots past the width enter as +inf;
+    for each end k and each start j <= k a running sum of y[j..k], times the
+    reciprocal of k - j + 1, folded with max over j and min over k (numpy's
+    fmax/fmin, which drop a NaN as fmaxf/fminf do); a NaN among a row's fitted
+    slots makes all of them NaN."""
+    f = np.float32
+    B, w = y.shape
+    x = np.where(np.arange(w)[None, :] < widths[:, None], y, f(np.inf)).astype(f)
+    fit = np.full((B, w), np.inf, f)
+    total = np.zeros((B, w), f)
+    for k in range(w):
+        run = None
+        for j in range(k + 1):
+            total[:, j] = x[:, k] if j == k else total[:, j] + x[:, k]
+            mean = total[:, j] * (f(1.0) / f(k - j + 1))
+            run = mean if j == 0 else np.fmax(run, mean)
+            fit[:, j] = np.fmin(fit[:, j], run)
+    out = np.minimum(np.maximum(fit, f(0.0)), radius[:, None].astype(f))
+    inside = np.arange(w)[None, :] < widths[:, None]
+    bad = np.isnan(np.where(inside, y, f(0.0))).any(axis=1)  # NaN among the fitted slots
+    out = np.where(bad[:, None], f(np.nan), out)
+    return np.where(inside, out, f(0.0))
+
+
+@pytest.mark.parametrize("w", PAVA_WIDTHS)
+@pytest.mark.parametrize("kind", PAVA_KINDS)
+def test_plain_pava_against_references_on_kernel_inputs(kind, w):
+    """The plain version (what the CPU path and the card's check use) against
+    the reference's XLA function, its Pallas kernel in interpret mode and the
+    float64 stack PAVA, within ATOL times the inputs' magnitude."""
+    y, widths, radius = _pava_inputs(kind, w)
+    mask = (np.arange(w)[None, :] < widths[:, None]).astype(np.float32)
+    tol = ATOL * max(1.0, float(np.abs(y).max()), float(radius.max()))
+    got = TI.pava_bounded(torch.from_numpy(y), torch.from_numpy(widths),
+                          torch.from_numpy(radius)).numpy()
+    np.testing.assert_allclose(got, _pava_f64(y, widths, radius), rtol=0, atol=tol)
+    xla = np.asarray(JI.pava_padded(jnp.asarray(y), jnp.asarray(mask), 0.0, jnp.asarray(radius)))
+    np.testing.assert_allclose(got, xla, rtol=0, atol=tol)
+    pallas = np.asarray(pava_pallas_t(jnp.asarray(y), jnp.asarray(widths), jnp.asarray(radius),
+                                      tile=128, interpret=True))
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=tol)
+    assert np.all(got[mask == 0] == 0.0)
+    assert np.all(np.diff(got, axis=1)[mask[:, 1:] > 0] >= -tol)
+
+
+@pytest.mark.parametrize("w", PAVA_WIDTHS)
+@pytest.mark.parametrize("kind", PAVA_KINDS)
+def test_kernel_minimax_form_restated_matches_float64_pava(kind, w):
+    """The kernel's own arithmetic, restated: within ATOL times the inputs'
+    magnitude of the float64 PAVA and of the plain version, exactly
+    nondecreasing (each mean is computed once and reused) and inside [0, radius]."""
+    y, widths, radius = _pava_inputs(kind, w)
+    tol = ATOL * max(1.0, float(np.abs(y).max()), float(radius.max()))
+    got = _minimax_form_f32(y, widths, radius)
+    np.testing.assert_allclose(got, _pava_f64(y, widths, radius), rtol=0, atol=tol)
+    plain = TI.pava_bounded(torch.from_numpy(y), torch.from_numpy(widths),
+                            torch.from_numpy(radius)).numpy()
+    np.testing.assert_allclose(got, plain, rtol=0, atol=tol)
+    inner = np.arange(1, w)[None, :] < widths[:, None]
+    assert np.all(np.diff(got, axis=1)[inner] >= 0.0)
+    assert np.all(got >= 0.0) and np.all(got <= radius[:, None])
+
+
+@pytest.mark.parametrize("w", PAVA_WIDTHS)
+def test_nan_rows_kernel_form_restated_matches_plain(w):
+    """A NaN among a row's fitted slots makes all of them NaN in the plain
+    version and in the kernel's arithmetic restated; a NaN in a padding slot
+    changes nothing; the other rows keep their fit."""
+    y, widths, radius = _pava_inputs("large", w)
+    rng = np.random.default_rng(w)
+    hit = np.zeros(len(widths), bool)
+    for b in range(0, len(widths), 3):
+        if widths[b] > 0:
+            y[b, rng.integers(0, widths[b])] = np.nan
+            hit[b] = True
+        elif w > 1:
+            y[b, rng.integers(0, w)] = np.nan  # padding only
+    tol = ATOL * max(1.0, float(np.nanmax(np.abs(y))), float(radius.max()))
+    plain = TI.pava_bounded(torch.from_numpy(y), torch.from_numpy(widths),
+                            torch.from_numpy(radius)).numpy()
+    got = _minimax_form_f32(y, widths, radius)
+    inside = np.arange(w)[None, :] < widths[:, None]
+    assert hit.any()
+    np.testing.assert_array_equal(np.isnan(plain), hit[:, None] & inside)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(plain))
+    np.testing.assert_allclose(got[~hit], _pava_f64(y[~hit], widths[~hit], radius[~hit]),
+                               rtol=0, atol=tol)
+
+
 ZFUNCS = ["zmask", "x_to_z_padded", "z_to_x_padded", "dz_adjoint_padded", "dz_forward_padded"]
 
 
