@@ -4,12 +4,13 @@ The port of ``bsls_tpu`` (JAX, the reference, which stays in the repository)
 to PyTorch with hand-written CUDA kernels for an NVIDIA H100.  This package
 imports ``torch``, never ``jax``, and nothing of ``bsls_tpu``.
 
-Ported so far: the batched projected-gradient solve (``solve(...,
-method="pgd")`` with the exact, bb, bbm, fixed and pava line searches) on the
-gather and the banded layout, and the opt-in fused chunk (``BSLS_MEGA=1``),
-with CUDA kernels (``csrc/``) for the block-simplex projection, the bounded
-isotonic regression, the two per-page band contractions and the fused chunk
-of PGD iterations.  Entry points take ``device=`` and default to ``"cuda"``;
+Ported so far: the batched solve with all six solver families (pgd with the
+exact, bb, bbm, fixed and pava line searches, apgd, lbfgs in x- and z-space,
+eg, frank_wolfe, afw) on the gather and the banded layout, ``certify=K``,
+``refine=K`` and ``refine_tol=``, and the opt-in fused chunk
+(``BSLS_MEGA=1``), with CUDA kernels (``csrc/``) for the block-simplex
+projection, the bounded isotonic regression, the two per-page band
+contractions and the fused chunk of PGD iterations.  Entry points take ``device=`` and default to ``"cuda"``;
 they run on the CPU only when asked to.
 
 Precision: fp32 on the device with float64 anchors on the host.  Dense and

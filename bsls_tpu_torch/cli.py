@@ -3,13 +3,16 @@
     python -m bsls_tpu_torch --config medium --method pgd --scenarios 128
     python -m bsls_tpu_torch --config medium --line-search pava
     python -m bsls_tpu_torch --preset medium-banded [--layout gather]
-    python -m bsls_tpu_torch --config tiny --device cpu
+    python -m bsls_tpu_torch --preset medium-lbfgs --scenarios 128 --refine 3
+    python -m bsls_tpu_torch --config tiny --method afw --refine-tol 1e-8 --device cpu
     python -m bsls_tpu_torch --config instance.npz --oracle
 
 Emits one JSON result line: iterations/s, objective, FW gap, the torch
-device, and objective-vs-oracle with time-to-1e-6-relative-gap when --oracle
-supplies f*.  Flags of parts that are not ported yet (refine, mesh,
-checkpoints, profiling) do not exist here and are rejected by the parser.
+device, ``refine_secs``/``refine_fw_gap`` after a polish, and
+objective-vs-oracle with time-to-1e-6-relative-gap when --oracle supplies
+f*.  Every solver family of the reference runs (``--method``).  Flags of
+parts that are not ported yet (mesh, checkpoints, profiling) do not exist
+here and are rejected by the parser.
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ def build_parser():
     p = argparse.ArgumentParser(prog="bsls_tpu_torch")
     p.add_argument("--preset", default=None, help="named preset from utils.config")
     p.add_argument("--config", default=None, help="tiny|medium|large|path.npz|path.json")
-    p.add_argument("--method", default=None, help="pgd (the other solvers are not ported yet)")
+    p.add_argument("--method", default=None,
+                   help="pgd|apgd|fista|lbfgs|eg|mirror_descent|frank_wolfe|fw|afw|pairwise|"
+                        "pairwise_fw")
     p.add_argument("--line-search", dest="line_search", default=None,
                    help="exact|bb|bbm|fixed|pava")
     p.add_argument("--scenarios", type=int, default=None,
@@ -36,6 +41,13 @@ def build_parser():
     p.add_argument("--max-iter", dest="max_iter", type=int, default=None)
     p.add_argument("--chunk", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--refine", type=int, default=None,
+                   help="post-solve f64-anchored polish rounds (breaks the fp32 ~1e-5 "
+                        "true-gap floor)")
+    p.add_argument("--refine-tol", dest="refine_tol", type=float, default=None,
+                   help="certified adaptive refine: polish until the float64 FW duality "
+                        "gap certifies this relative gap (--refine caps rounds); the "
+                        "certificate is reported as refine_fw_gap")
     p.add_argument("--oracle", action="store_true", default=None)
     p.add_argument("--metrics", dest="metrics_path", default=None)
     p.add_argument("--device", default=None, help="cuda (default) | cpu")
@@ -51,13 +63,14 @@ def main(argv=None):
     from bsls_tpu_torch.models import Problem, synthetic
     from bsls_tpu_torch.models.synthetic import _CONFIGS
     from bsls_tpu_torch.ops.layout import DeviceBanded, resolve_device
+    from bsls_tpu_torch.solvers.base import DEFAULT_REFINE_ROUNDS, refine_polish
     from bsls_tpu_torch.utils.config import load_config
     from bsls_tpu_torch.utils.metrics import MetricsWriter
 
     overrides = {
         k: getattr(args, k)
         for k in ("config method line_search scenarios layout tol max_iter chunk seed "
-                  "oracle metrics_path device").split()
+                  "refine refine_tol oracle metrics_path device").split()
         if getattr(args, k) is not None
     }
     cfg = load_config(args.preset or args.config or "tiny", **overrides)
@@ -95,6 +108,12 @@ def main(argv=None):
             step_size=cfg.step_size,
             metrics=mw if cfg.metrics_path else None,
         )
+        # the polish of solve(refine=...) on the prepared layout (solve takes
+        # the refine options only with the host Problem, which it prepares
+        # itself under layout="auto")
+        rounds = cfg.refine or (DEFAULT_REFINE_ROUNDS if cfg.refine_tol is not None else 0)
+        if rounds:
+            res = refine_polish(prob, dp, res, rounds=rounds, target_rel_gap=cfg.refine_tol)
 
         ips = res.steady_iters_per_sec()
         out = {
@@ -112,6 +131,10 @@ def main(argv=None):
             "iters_per_sec": round(ips, 3),
             "gen_secs": round(t_gen, 3),
         }
+        if rounds:
+            out["refine_secs"] = round(res.refine_secs, 3)
+        if res.refine_fw_gap is not None:
+            out["refine_fw_gap"] = res.refine_fw_gap
         if f_star is not None:
             out["oracle_objective"] = f_star
             f = float(np.max(np.asarray(res.objective)))

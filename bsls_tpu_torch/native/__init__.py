@@ -8,9 +8,12 @@ implementation — identical output, just O(N log N) instead of O(N).  This
 is host preparation, not device compute: the fallback hides no kernel.
 ``native_available()`` says which of the two runs.
 
+``csr_matmat_f64`` is the float64 host SpMM of certified refine (OpenMP
+over (right-hand side, row block) tasks); without the library it returns
+None and its callers keep their scipy path.
+
 Set BSLS_NO_NATIVE=1 to force the numpy path (used by the equivalence
-tests).  A copy of ``bsls_tpu/native`` without the float64 SpMM, which the
-refine slice brings."""
+tests).  A copy of ``bsls_tpu/native``."""
 from __future__ import annotations
 
 import ctypes
@@ -20,7 +23,7 @@ import threading
 
 import numpy as np
 
-__all__ = ["csc_ell", "group_ell", "native_available"]
+__all__ = ["csc_ell", "csr_matmat_f64", "group_ell", "native_available"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "layout_kernels.cc")
@@ -45,8 +48,8 @@ def _load():
                 os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
                 tmp = _LIB_PATH + ".tmp.so"
                 subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                     "-o", tmp, _SRC],
+                    ["g++", "-O3", "-march=native", "-fopenmp", "-shared",
+                     "-fPIC", "-o", tmp, _SRC],
                     check=True, capture_output=True, timeout=120,
                 )
                 os.replace(tmp, _LIB_PATH)
@@ -72,6 +75,11 @@ def _load():
             lib.bsls_csc_fill_f64.restype = None
             lib.bsls_csc_fill_f64.argtypes = [
                 i64p, i32p, f64p, ctypes.c_int64, ctypes.c_int64, i32p, f64p,
+            ]
+            lib.bsls_csr_matmat_f64.restype = None
+            lib.bsls_csr_matmat_f64.argtypes = [
+                i64p, i32p, f64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                f64p, f64p,
             ]
             _lib = lib
         except Exception:
@@ -149,3 +157,19 @@ def group_ell(keys, idx, vals, num_groups: int):
     fill(keys, idx, vals, keys.size, width, cursors, cols.reshape(-1),
          out_vals.reshape(-1))
     return cols, out_vals
+
+
+def csr_matmat_f64(indptr, indices, data, m: int, X):
+    """Y (S, m) = X (S, n) @ A^T for CSR A (m x n): one parallel CSR
+    matvec per RHS row via the native OpenMP kernel (parallel over
+    (rhs, row-block) tasks).  Returns None when the native library is
+    unavailable (callers fall back to scipy).  Inputs must be prepared
+    once by the caller: int64 indptr, int32 indices, float64 data, and a
+    C-contiguous float64 X of shape (S, n)."""
+    lib = _load()
+    if lib is None:
+        return None
+    S, n = X.shape
+    Y = np.empty((S, m), np.float64)
+    lib.bsls_csr_matmat_f64(indptr, indices, data, m, n, S, X, Y)
+    return Y

@@ -47,12 +47,14 @@ __all__ = [
     "padded_to_flat",
     "extract_user_flat",
     "inject_user_flat",
+    "inject_user_grad",
     "feasible_init",
     "gather_dot",
     "matvec",
     "rmatvec",
     "xdot",
     "rdot",
+    "xmatdot",
 ]
 
 
@@ -637,6 +639,18 @@ def inject_user_flat(dp: DeviceProblem, x_user: torch.Tensor):
     return flat_to_padded(dp, u_pf)
 
 
+def inject_user_grad(dp: DeviceProblem, g_user: torch.Tensor) -> torch.Tensor:
+    """User-flat GRADIENT (N,) or (S, N) -> PF flat in the equilibrated
+    coordinates.  The device solves in u = c_b * x (block equilibration), so
+    gradients transform inversely: g_dev = g_user / c_b.  Used by the
+    iterative-refinement anchor (solvers/base.py refine_polish)."""
+    sel, idx = _user_index(dp)
+    return torch.where(
+        sel, g_user[..., idx] / torch.clamp(_scale_pf(dp), min=1e-30),
+        torch.zeros((), dtype=g_user.dtype, device=g_user.device),
+    )
+
+
 def feasible_init(dp: DeviceProblem, dtype=None, scenarios: Optional[int] = None):
     """Uniform feasible start: radius/n_i on each real block, 0 on padding
     and on dummy rows (sizes = 0).  ``scenarios=S`` gives each bucket a
@@ -751,3 +765,11 @@ def xdot(dp: DeviceProblem, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def rdot(dp: DeviceProblem, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Inner product of r-space vectors over the last axis."""
     return (a * b).sum(dim=-1)
+
+
+def xmatdot(dp: DeviceProblem, M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched x-space dots: (K, n) @ (n,) -> (K,), or per scenario
+    (S, K, n) @ (S, n) -> (S, K).  One batched product instead of K serial
+    dots (the L-BFGS compact form's history products), at full fp32: TF32 is
+    off package-wide, and reduced-precision passes break 1e-6 convergence."""
+    return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)

@@ -1,8 +1,8 @@
 from .base import (
     SolveOptions, SolveResult, StopTracker, fw_gap, power_lipschitz,
-    power_lipschitz_z, solve, uses_zspace,
+    power_lipschitz_z, refine_polish, solve, uses_zspace,
 )
-from . import pgd
+from . import apgd, frank_wolfe, lbfgs, mirror_descent, pgd
 
 __all__ = [
     "SolveOptions",
@@ -12,6 +12,11 @@ __all__ = [
     "power_lipschitz",
     "power_lipschitz_z",
     "uses_zspace",
+    "refine_polish",
     "solve",
+    "apgd",
+    "frank_wolfe",
+    "lbfgs",
+    "mirror_descent",
     "pgd",
 ]

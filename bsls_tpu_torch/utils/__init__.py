@@ -1,9 +1,10 @@
-from . import config, metrics, refimpl
+from . import config, hostops, metrics, refimpl
 from .config import PRESETS, RunConfig, load_config
 from .metrics import MetricsWriter
 
 __all__ = [
     "config",
+    "hostops",
     "metrics",
     "refimpl",
     "PRESETS",

@@ -18,8 +18,6 @@ __all__ = ["RunConfig", "PRESETS", "load_config"]
 # the value that means "off" and the slice that brings the feature
 _UNPORTED_OFF = {
     "unroll": (1, "no scan to unroll: the port's chunk is a Python loop"),
-    "refine": (0, "refine/certify"),
-    "refine_tol": (None, "refine/certify"),
     "mesh_block": (0, "distribution"),
     "mesh_scenario": (1, "distribution"),
     "profile_dir": (None, "harness"),
@@ -37,12 +35,14 @@ class RunConfig:
     instance_kwargs: dict = field(default_factory=dict)
     scenarios: int = 1  # > 1 batches the instance to S right-hand sides
     # solver
-    method: str = "pgd"
+    method: str = "pgd"  # pgd | apgd | lbfgs | eg | frank_wolfe | afw
     line_search: str = "exact"  # exact | bb | bbm | fixed | pava
     tol: float = 1e-6
     max_iter: int = 10_000
     chunk: int = 100
     step_size: float = 0.0
+    refine: int = 0  # post-solve f64-anchored polish rounds (solve(refine=K))
+    refine_tol: Optional[float] = None  # certified adaptive refine target
     dtype: str = "float32"
     equilibrate: bool = True
     layout: str = "auto"  # auto | banded | gather  (ops.layout.prepare)
@@ -68,9 +68,13 @@ PRESETS = {
     "tiny": RunConfig(config="tiny", method="pgd", line_search="exact"),
     "medium-pgd": RunConfig(config="medium", method="pgd"),
     "medium-pgd-x128": RunConfig(config="medium", method="pgd", scenarios=128),
+    "medium-eg": RunConfig(config="medium", method="eg"),
+    "medium-lbfgs": RunConfig(config="medium", method="lbfgs"),
     # corridor-structured instance: prepare(layout="auto") picks the
     # banded-split layout
     "medium-banded": RunConfig(config="medium_banded", method="pgd", line_search="bbm"),
+    "sweep-fw": RunConfig(config="medium", method="frank_wolfe"),
+    "sweep-eg": RunConfig(config="medium", method="eg"),
     "sweep-pgd-pava": RunConfig(config="medium", method="pgd", line_search="pava"),
 }
 

@@ -4,9 +4,11 @@
         --line-search exact,pava --iters 30 [--trace trace.json]
     python -m bsls_tpu_torch.utils.profiling --config medium_banded --scenarios 1 \
         --line-search bbm --layout auto
+    python -m bsls_tpu_torch.utils.profiling --method lbfgs,eg,afw --iters 30
 
-Runs ``iters`` steps of the PGD solver under ``torch.profiler`` after a
-warm-up and prints one JSON line: wall time per iteration (host clock around
+Runs ``iters`` steps of a solver (``--method``, default pgd; several
+methods or line searches separated by commas, one line each) under
+``torch.profiler`` after a warm-up and prints one JSON line per run: wall time per iteration (host clock around
 a synchronised window), the device's busy time per iteration (union of the
 kernel intervals), its idle share, and the kernels by name with their device
 time and launches per iteration (the sixteen largest and every kernel of
@@ -23,23 +25,26 @@ import time
 import torch
 
 
-def profile_steps(dp, line_search: str, iters: int, warmup: int = 5, trace_path=None) -> dict:
-    from ..solvers import pgd
-    from ..solvers.base import SolveOptions, power_lipschitz, power_lipschitz_z, uses_zspace
+def profile_steps(dp, line_search: str, iters: int, warmup: int = 5, trace_path=None,
+                  method: str = "pgd") -> dict:
+    from ..solvers.base import (
+        SolveOptions, _get_solver, power_lipschitz, power_lipschitz_z, uses_zspace,
+    )
 
-    opts = SolveOptions(method="pgd", line_search=line_search)
-    power = power_lipschitz_z if uses_zspace("pgd", line_search) else power_lipschitz
+    solver = _get_solver(method)
+    opts = SolveOptions(method=method, line_search=line_search)
+    power = power_lipschitz_z if uses_zspace(method, line_search) else power_lipschitz
     L_est = power(dp)
-    st = pgd.init(dp, L_est, opts)
+    st = solver.init(dp, L_est, opts)
     for _ in range(warmup):
-        st = pgd.step(dp, st, L_est, opts)
+        st = solver.step(dp, st, L_est, opts)
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            st = pgd.step(dp, st, L_est, opts)
+            st = solver.step(dp, st, L_est, opts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if trace_path:
@@ -69,6 +74,7 @@ def profile_steps(dp, line_search: str, iters: int, warmup: int = 5, trace_path=
     # the sixteen largest, and the hand-written kernels of csrc/ wherever they rank
     kernels = kernels[:16] + [kv for kv in kernels[16:] if "bsls::" in kv[0]]
     return {
+        "method": method,
         "line_search": line_search,
         "iters": iters,
         "wall_ms_per_iter": 1e3 * wall / iters,
@@ -87,6 +93,8 @@ def main(argv=None):
     ap.add_argument("--config", default="medium")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scenarios", type=int, default=128)
+    ap.add_argument("--method", default="pgd",
+                    help="one solver family, or several separated by commas")
     ap.add_argument("--line-search", dest="line_search", default="exact",
                     help="one line search, or several separated by commas")
     ap.add_argument("--layout", choices=["auto", "banded", "gather"], default="auto")
@@ -106,11 +114,12 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
     outs = []
-    for ls in args.line_search.split(","):
-        out = profile_steps(dp, ls, args.iters, trace_path=args.trace)
-        out.update(config=args.config, scenarios=args.scenarios, layout=layout, card=card)
-        print(json.dumps(out), flush=True)
-        outs.append(out)
+    for method in args.method.split(","):
+        for ls in args.line_search.split(","):
+            out = profile_steps(dp, ls, args.iters, trace_path=args.trace, method=method)
+            out.update(config=args.config, scenarios=args.scenarios, layout=layout, card=card)
+            print(json.dumps(out), flush=True)
+            outs.append(out)
     return outs
 
 

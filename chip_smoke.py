@@ -7,7 +7,7 @@
 
 Drives ``bsls_tpu_torch`` only (nothing of JAX): builds the native host
 library and the CUDA kernels from the sources in this checkout, holds every
-kernel against its plain PyTorch version on the card, and runs three paths
+kernel against its plain PyTorch version on the card, and runs these paths
 through ``prepare``/``solve``:
 
 * the batched PGD solve on ``synthetic.medium_sparse`` x 128 scenarios with the
@@ -17,7 +17,12 @@ through ``prepare``/``solve``:
   ``medium-banded``: bbm line search), single right-hand side and 4 scenarios
   (the two page kernels), and forced-banded against gather;
 * the fused chunk (``BSLS_MEGA=1``) on ``synthetic.tiny_dense`` against the
-  eager path of the same solve.
+  eager path of the same solve;
+* the five other solver families (apgd, eg, frank_wolfe, afw, lbfgs in x- and
+  z-space) on medium x 128, lbfgs and afw on the card against the CPU and on
+  the band against gather; ``certify`` (pgd/bbm, then 150 afw steps);
+  ``refine`` (lbfgs, then three rounds of the device CG) at S = 128 and the
+  certified ``refine_tol`` (host float64 PCG) at S = 8.
 
 Every phase prints one JSON line; a failed phase raises and the script exits
 non-zero without the result line.  The last line is ``{"ok": true, "device":
@@ -756,14 +761,18 @@ def f64_objective(prob, x, scenario):
     return 0.5 * float(r @ r)
 
 
-def phase_solve(phase, prob, dp, line_search, max_iter, kernels):
+def phase_solve(phase, prob, dp, line_search, max_iter, kernels, method="pgd", space="x",
+                lipschitz=None, chunk=100):
     """One path: ``solve`` on a prepared instance.  The launch counts are set
     to 0 just before and read just after; each kernel of ``kernels`` must
-    have been launched at least once per iteration and bucket."""
+    have been launched at least once per iteration and bucket.  Every
+    family checked here descends by construction (apgd by its safeguard, the
+    others by an exact step clipped to [0, 1]), so the objective must not
+    rise between chunk ends."""
     torch.cuda.reset_peak_memory_stats()
     bt.reset_launch_counts()
-    res = bt.solve(dp, method="pgd", line_search=line_search, tol=0.0,
-                   max_iter=max_iter, chunk=100)
+    res = bt.solve(dp, method=method, line_search=line_search, space=space, tol=0.0,
+                   max_iter=max_iter, chunk=chunk, lipschitz=lipschitz)
     counts = bt.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
@@ -775,10 +784,14 @@ def phase_solve(phase, prob, dp, line_search, max_iter, kernels):
     check(bool(np.isfinite(res.trace_f).all() and np.isfinite(res.x).all()),
           f"{phase}: non-finite objective or x")
     x, trace = np.atleast_2d(res.x), np.atleast_2d(res.trace_f)
-    ends = trace[:, 99::100].astype(np.float64)
+    ends = trace[:, chunk - 1::chunk].astype(np.float64)
     check(bool(np.all(ends[:, 1:] <= ends[:, :-1] * (1 + 1e-4))),
           f"{phase}: objective rose between chunk ends")
-    check(bool(np.all(ends[:, -1] < ends[:, 0])), f"{phase}: no descent")
+    # pgd descends from one chunk end to the next at this budget; the other
+    # families (L-BFGS above all) may reach the fp32 floor inside the first
+    # chunk, so their descent is counted from the first iteration
+    start = ends[:, 0] if method == "pgd" else trace[:, 0].astype(np.float64)
+    check(bool(np.all(ends[:, -1] < start)), f"{phase}: no descent")
     sizes = prob.partition.sizes
     offs = np.concatenate([[0], np.cumsum(sizes)[:-1]])
     sums = np.add.reduceat(x.astype(np.float64), offs, axis=1)
@@ -792,7 +805,8 @@ def phase_solve(phase, prob, dp, line_search, max_iter, kernels):
         check(counts[kernel] >= max_iter * n_buckets,
               f"{phase}: {kernel} launched {counts[kernel]} times, expected >= "
               f"{max_iter * n_buckets}")
-    emit(phase, line_search=line_search, iterations=res.iterations, scenarios=S,
+    emit(phase, method=method, space=space, line_search=line_search, chunk=chunk,
+         iterations=res.iterations, scenarios=S,
          aggregate_iters_per_sec=S * res.steady_iters_per_sec(),
          chunk_secs=[round(float(t), 4) for t in res.chunk_times],
          objective_s0=f32, objective_s0_f64=f64,
@@ -915,6 +929,320 @@ def phase_solve_mega(ctx, max_iter=1000, chunk=100):
          eager_iters_per_sec=eager.steady_iters_per_sec())
     return counts, per_step(eager)
 
+# ------------------------------------------- the other five solver families
+
+# (method, space, kernels its steps launch, chunk).  apgd carries the residual
+# at its extrapolated point incrementally, as the reference does, and its
+# running objective drifts from its iterate's by about chunk^1.5: at medium
+# x 2 in float32 on a CPU 1.4e-3 after 100 steps, 4.3e-5 after 20 and 2.9e-5
+# after 10; on the card 1.1e-4 after 20.  A refresh every 10 iterations keeps
+# it inside the 1e-4 of the objective check.
+FAMILIES = (
+    ("apgd", "x", ("proj_simplex_rows",), 10),
+    ("eg", "x", (), 100),
+    ("frank_wolfe", "x", (), 100),
+    ("afw", "x", (), 100),
+    ("lbfgs", "x", ("proj_simplex_rows",), 100),
+    ("lbfgs", "z", ("pava_rows",), 100),
+)
+# the card against the CPU, and one layout against the other, where sums run
+# in another order.  Whole traces of lbfgs and afw part by more than 1e-3
+# within 10 to 40 iterations and meet again at the end: afw's near-tied
+# vertex choices and L-BFGS's projection-arc active sets flip with the order of
+# a sum (on the card, afw against the CPU at medium x 4 passed 1e-3 after 13
+# iterations; the ends agreed to 1e-5).  So these phases take one step from
+# the same state at every chunk end on both sides and hold the float64
+# objectives of the two iterates it gives at ONE_STEP_LIMIT, and the ends of
+# the solves that converge at the limit of the earlier phases.  Near the
+# optimum the fp32 residual r = Ax - b cancels, and the gradient of each side
+# carries ~1e-5 relative error: one step from the same iterate of an
+# 80-block corridor instance gave objectives 2e-5 apart on the two layouts.
+ONE_STEP_LIMIT = 1e-4
+
+
+def _state_to(st, device):
+    """A solver state (frozen dataclass of tensors and tuples of tensors) on
+    another device."""
+    import dataclasses
+
+    def move(v):
+        if isinstance(v, tuple):
+            return tuple(move(a) for a in v)
+        return v.to(device) if isinstance(v, torch.Tensor) else v
+
+    return type(st)(**{f.name: move(getattr(st, f.name)) for f in dataclasses.fields(st)})
+
+
+def _states_at_chunk_ends(dp, method, kw):
+    """``solve`` with a callback that keeps the state at every chunk end."""
+    seen = []
+    res = bt.solve(dp, method=method, callback=lambda it, st: seen.append(st), **kw)
+    return res, seen
+
+
+def _one_step_diff(prob, mod, opts, L_est, dp_a, st_a, dp_b, st_b):
+    """One step from the same iterate on two problems: the largest relative
+    difference of the float64 objectives of the two iterates it gives."""
+    from bsls_tpu_torch.ops.layout import extract_user_flat
+
+    fs = [prob.objective_np(extract_user_flat(d, mod.step(d, st, L_est, opts).xp)
+                            .double().cpu().numpy())
+          for d, st in ((dp_a, st_a), (dp_b, st_b))]
+    return float(np.max(np.abs(fs[0] - fs[1]) / np.abs(fs[1])))
+
+
+def family_lipschitz(dp):
+    return {"x": bt.solvers.power_lipschitz(dp), "z": bt.solvers.power_lipschitz_z(dp)}
+
+
+def phase_solve_families(prob, dp, max_iter=200):
+    """The five other families (and z-space L-BFGS) through ``solve`` on
+    medium x 128, one shared ``lipschitz=`` per curvature kind."""
+    lips = family_lipschitz(dp)
+    total = {}
+    for method, space, kernels, chunk in FAMILIES:
+        counts = phase_solve(f"solve_{method}" + ("_z" if space == "z" else ""), prob, dp,
+                             "exact", max_iter, kernels, method=method, space=space,
+                             lipschitz=lips[space], chunk=chunk)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    emit("solve_families", families=[m + ("_z" if sp == "z" else "") for m, sp, _, _ in FAMILIES],
+         lipschitz=lips, launches=total)
+    return total
+
+
+def phase_cross_check_families(base):
+    """lbfgs and afw: the port on the card against the port on the CPU, one
+    step from the card's state (L-BFGS memory included) at every chunk end,
+    and the ends of both solves."""
+    from bsls_tpu_torch.solvers.base import SolveOptions, _get_solver
+
+    prob = bt.synthetic.with_scenarios(base, 4, seed=1)
+    dp_gpu = bt.prepare(prob, layout="gather", device=DEV)
+    dp_cpu = bt.prepare(prob, layout="gather", device="cpu")
+    L_est = bt.solvers.power_lipschitz(dp_gpu)
+    kw = dict(tol=0.0, max_iter=200, chunk=50, lipschitz=L_est)
+    out = {}
+    for method in ("lbfgs", "afw"):
+        on_card, states = _states_at_chunk_ends(dp_gpu, method, kw)
+        on_cpu = bt.solve(dp_cpu, method=method, **kw)
+        opts, mod = SolveOptions(method=method), _get_solver(method)
+        steps = [_one_step_diff(prob, mod, opts, L_est, dp_gpu, st, dp_cpu, _state_to(st, "cpu"))
+                 for st in states]
+        check(max(steps) <= ONE_STEP_LIMIT, f"cross_check_families: {method}, one step from "
+              f"the same state differs by {max(steps):.2e} relative on the card and the CPU")
+        rel = np.abs(on_card.trace_f - on_cpu.trace_f) / np.abs(on_cpu.trace_f)
+        check(float(rel[:, -1].max()) <= 1e-3,
+              f"cross_check_families: {method} ends differ by {rel[:, -1].max():.2e} relative")
+        past = np.nonzero(rel.max(0) > 1e-3)[0]
+        out[method] = dict(one_step_rel_diff_by_chunk_end=steps,
+                           max_rel_end_diff=float(rel[:, -1].max()),
+                           first_iteration_past_1e_3=int(past[0]) if past.size else None,
+                           max_rel_trace_diff=float(rel.max()),
+                           max_abs_x_diff=float(np.abs(on_card.x - on_cpu.x).max()))
+    emit("cross_check_families", scenarios=4, iterations=200, **out)
+
+
+def _fw_gap_rel(prob, X):
+    """Float64 objective and FW duality gap g.x - sum_b min g of each row of
+    X, the gap relative (gap / max(1, |f|)), and the relative size of the
+    terms the gap is the difference of (its float64 rounding scales with it)."""
+    A = prob.A.to_scipy().astype(np.float64).tocsr()
+    B = np.atleast_2d(np.asarray(prob.b, np.float64))
+    X = np.atleast_2d(np.asarray(X, np.float64))
+    R = (A @ X.T).T - B
+    G = (A.T @ R.T).T
+    f = 0.5 * (R * R).sum(-1)
+    offs = np.concatenate([[0], np.cumsum(prob.partition.sizes)[:-1]])
+    mins = np.minimum.reduceat(G, offs, axis=1)
+    gaps = (G * X).sum(-1) - mins.sum(-1)
+    terms = np.abs(G * X).sum(-1) + np.abs(mins).sum(-1)
+    norm = np.maximum(1.0, np.abs(f))
+    return f, gaps / norm, terms / norm
+
+
+def _repaired(prob, X):
+    """X clipped at 0 and renormalised per block in float64: the feasible
+    point that refine_polish starts from."""
+    sizes = prob.partition.sizes
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    X = np.maximum(np.atleast_2d(np.asarray(X, np.float64)), 0.0)
+    return X / np.repeat(np.maximum(np.add.reduceat(X, offs, axis=1), 1e-300), sizes, axis=1)
+
+
+def phase_certify(prob, dp, max_iter=400, certify=150):
+    """pgd/bbm, then the same solve with ``certify``: K afw steps from its end."""
+    kw = dict(method="pgd", line_search="bbm", tol=0.0, max_iter=max_iter, chunk=100,
+              lipschitz=bt.solvers.power_lipschitz(dp))
+    r0 = bt.solve(dp, **kw)
+    bt.reset_launch_counts()
+    t0 = time.perf_counter()
+    r1 = bt.solve(dp, certify=certify, **kw)
+    secs = time.perf_counter() - t0
+    counts = bt.launch_counts()
+    f0, f1 = np.asarray(r0.objective, np.float64), np.asarray(r1.objective, np.float64)
+    g0, g1 = np.asarray(r0.gap, np.float64), np.asarray(r1.gap, np.float64)
+    check(bool(np.isfinite(r1.x).all() and np.isfinite(g1).all()), "certify: non-finite result")
+    check(bool(np.all(f1 <= f0 * (1 + 1e-6))), "certify: an objective got worse by more than "
+          f"1e-6 relative ({np.max(f1 / f0 - 1):.2e})")
+    check(bool(np.all(g1 < g0)), "certify: the gap did not shrink in every scenario "
+          f"({int(np.sum(g1 >= g0))} of {len(g0)} did not; the polish is all or nothing)")
+    ratio = g1 / g0
+    emit("certify", scenarios=len(g0), iterations=max_iter, certify=certify,
+         gap_ratio_max=float(ratio.max()), gap_ratio_median=float(np.median(ratio)),
+         scenarios_below_0_1=int(np.sum(ratio < 0.1)), gap_before_median=float(np.median(g0)),
+         gap_after_median=float(np.median(g1)), max_rel_objective_change=float(np.max(f1 / f0 - 1)),
+         secs_with_certify=secs, launches=counts)
+    return counts
+
+
+def phase_refine(prob, dp, max_iter=400, rounds=3):
+    """lbfgs, then ``refine_polish`` with the device CG (what ``solve(refine=)``
+    runs after its main solve), on medium x 128.  The CG is wrapped here to
+    time its share (synchronised before and after each call)."""
+    from bsls_tpu_torch.solvers import base as TB
+
+    res = bt.solve(dp, method="lbfgs", tol=0.0, max_iter=max_iter, chunk=100)
+    cg_secs, real_cg = [0.0], TB._polish_cg
+
+    def timed_cg(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_cg(*a)
+        torch.cuda.synchronize()
+        cg_secs[0] += time.perf_counter() - t0
+        return out
+
+    f_raw = _fw_gap_rel(prob, res.x)[0]
+    # the unrefined point made feasible in float64 (its fp32 block sums are
+    # off by ~1e-7, which moves f64 objectives by ~1e-6 either way)
+    f0, gap0, _ = _fw_gap_rel(prob, _repaired(prob, res.x))
+    bt.reset_launch_counts()
+    TB._polish_cg = timed_cg
+    try:
+        pol = TB.refine_polish(prob, dp, res, rounds=rounds)
+    finally:
+        TB._polish_cg = real_cg
+    counts = bt.launch_counts()
+    f1, gap1, _ = _fw_gap_rel(prob, pol.x)
+    x = np.asarray(pol.x)
+    offs = np.concatenate([[0], np.cumsum(prob.partition.sizes)[:-1]])
+    sums = np.add.reduceat(x, offs, axis=1)
+    check(pol.x.dtype == np.float64 and x.shape == res.x.shape, "refine: wrong x")
+    check(bool(np.all(f1 <= f0 + 1e-12)), f"refine: {int(np.sum(f1 > f0 + 1e-12))} scenarios "
+          "got worse in float64")
+    check(float(x.min()) >= -1e-12, f"refine: x has an entry {x.min():.2e}")
+    check(float(np.abs(sums - 1.0).max()) <= 1e-9,
+          f"refine: block sums off by {np.abs(sums - 1).max():.2e}")
+    emit("refine", scenarios=len(f0), iterations=max_iter, rounds=rounds, path="device CG",
+         refine_secs=pol.refine_secs, device_cg_secs=cg_secs[0],
+         host_secs=pol.refine_secs - cg_secs[0], cg_iterations=pol.iterations - max_iter,
+         fw_gap_rel_before_max=float(gap0.max()), fw_gap_rel_after_max=float(gap1.max()),
+         fw_gap_rel_before_median=float(np.median(gap0)),
+         fw_gap_rel_after_median=float(np.median(gap1)),
+         max_rel_objective_gain=float(np.max((f0 - f1) / f0)),
+         median_rel_objective_gain=float(np.median((f0 - f1) / f0)),
+         scenarios_above_unrefined_fp32_x=int(np.sum(f1 > f_raw)), launches=counts)
+    return counts
+
+
+def phase_refine_certified(base, scenarios=8, max_iter=400, target=1e-6):
+    """Certified refine through ``solve(refine_tol=)`` (host float64 Jacobi-PCG)
+    on medium x 8: the cut from 128 scenarios keeps the host PCG inside the
+    script's time."""
+    prob = bt.synthetic.with_scenarios(base, scenarios, seed=1)
+    lines = io.StringIO()
+    saved = os.environ.get("BSLS_REFINE_TRACE")
+    os.environ["BSLS_REFINE_TRACE"] = "1"
+    bt.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(lines):
+            res = bt.solve(prob, method="lbfgs", tol=0.0, max_iter=max_iter, chunk=100,
+                           refine_tol=target, device=DEV)
+    finally:
+        if saved is None:
+            os.environ.pop("BSLS_REFINE_TRACE", None)
+        else:
+            os.environ["BSLS_REFINE_TRACE"] = saved
+    secs = time.perf_counter() - t0
+    counts = bt.launch_counts()
+    f, gap, terms = _fw_gap_rel(prob, res.x)
+    # the certificate bounds f - f* by the FW gap and by f itself (f* >= 0);
+    # recomputed here with sums in another order, to float64 rounding of the
+    # terms the gap is the difference of
+    bound = np.minimum(gap * np.maximum(1.0, np.abs(f)), f) / np.maximum(1.0, np.abs(f))
+    slack = 1e-12 * terms
+    check(res.refine_fw_gap is not None and np.isfinite(res.refine_fw_gap),
+          "refine_certified: no certificate")
+    check(bool(np.all(bound <= res.refine_fw_gap + slack)),
+          f"refine_certified: the float64 bound {bound.max():.3e} exceeds the certificate "
+          f"{res.refine_fw_gap:.3e} by more than its rounding ({slack.max():.1e})")
+    emit("refine_certified", scenarios=scenarios, iterations=max_iter, refine_tol=target,
+         reduced={"scenarios": f"{SCENARIOS} -> {scenarios}: the host float64 PCG of certified "
+                  "refine grows with S"},
+         path="host Jacobi-PCG", refine_fw_gap=res.refine_fw_gap, certified=bool(
+             res.refine_fw_gap <= target), rounds_logged=lines.getvalue().count("[refine] round="),
+         cg_iterations=res.iterations - max_iter, refine_secs=res.refine_secs,
+         solve_and_refine_secs=secs, fw_gap_rel_max=float(gap.max()),
+         bound_rel_max=float(bound.max()), rounding_slack_max=float(slack.max()),
+         launches=counts)
+    return counts
+
+
+def phase_solve_banded_families(ctx, max_iter=200):
+    """lbfgs and afw on the banded layout of medium_banded x 4 against the
+    gather layout, one ``lipschitz=``: one step from the banded iterate at
+    every chunk end mapped to the gather layout (a fresh state there and on
+    the band, the counter kept: afw's mix and the first L-BFGS step without
+    memory), and L-BFGS's converged ends at the limit of banded_vs_gather."""
+    import dataclasses
+
+    from bsls_tpu_torch.ops import layout as TL
+    from bsls_tpu_torch.solvers.base import SolveOptions, _get_solver
+
+    prob, dp = ctx["banded_prob"][4], ctx["banded"][4]
+    dp_g = bt.prepare(prob, layout="gather", device=DEV)
+    L_est = bt.solvers.power_lipschitz(dp)
+    kw = dict(tol=0.0, max_iter=max_iter, chunk=50, lipschitz=L_est)
+    total, out = {}, {}
+    for method in ("lbfgs", "afw"):
+        bt.reset_launch_counts()
+        rb, states = _states_at_chunk_ends(dp, method, kw)
+        counts = bt.launch_counts()
+        rg = bt.solve(dp_g, method=method, **kw)
+        for k in ("band_zmv", "band_grmv"):
+            check(counts[k] >= max_iter, f"solve_banded_families: {method} launched {k} "
+                  f"{counts[k]} times in {max_iter} iterations")
+        check(bool(np.isfinite(rb.x).all()), f"solve_banded_families: {method} non-finite x")
+        opts, mod = SolveOptions(method=method), _get_solver(method)
+        steps = []
+        for st in states:
+            xg = TL.inject_user_flat(dp_g, TL.extract_user_flat(dp, st.xp))
+            sb = dataclasses.replace(mod.init(dp, L_est, opts, xp0=st.xp), k=st.k)
+            sg = dataclasses.replace(mod.init(dp_g, L_est, opts, xp0=xg), k=st.k)
+            steps.append(_one_step_diff(prob, mod, opts, L_est, dp, sb, dp_g, sg))
+        check(max(steps) <= ONE_STEP_LIMIT, f"solve_banded_families: {method}, one step from "
+              f"the same iterate differs by {max(steps):.2e} relative on the two layouts")
+        rel = np.abs(rb.trace_f - rg.trace_f) / np.abs(rg.trace_f)
+        if method == "lbfgs":  # converged by 200 iterations
+            check(float(rel[:, -1].max()) <= 5e-4,
+                  f"solve_banded_families: lbfgs banded and gather ends differ by "
+                  f"{rel[:, -1].max():.2e}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        past = np.nonzero(rel.max(0) > 5e-4)[0]
+        out[method] = dict(one_step_rel_diff_by_chunk_end=steps,
+                           max_rel_end_diff=float(rel[:, -1].max()),
+                           first_iteration_past_5e_4=int(past[0]) if past.size else None,
+                           objective_banded=np.asarray(rb.objective).tolist(),
+                           objective_gather=np.asarray(rg.objective).tolist(),
+                           aggregate_iters_per_sec_banded=4 * rb.steady_iters_per_sec(),
+                           aggregate_iters_per_sec_gather=4 * rg.steady_iters_per_sec(),
+                           launches=counts)
+    emit("solve_banded_families", scenarios=4, iterations=max_iter, **out)
+    return total
+
 
 def main():
     ap = argparse.ArgumentParser()
@@ -962,6 +1290,18 @@ def main():
     launches, eager_ms = phase_solve_mega(ctx)
     report["pgd_chunk"]["launches"] = launches["pgd_chunk"]
     report["pgd_chunk"]["eager_solve_ms_per_step"] = eager_ms
+
+    # the other families, certify and refine add their launches to the rows
+    # of the kernels they run
+    new_paths = [phase_solve_families(prob, dp)]
+    phase_cross_check_families(base)
+    new_paths.append(phase_certify(prob, dp))
+    new_paths.append(phase_refine(prob, dp))
+    new_paths.append(phase_refine_certified(base))
+    new_paths.append(phase_solve_banded_families(ctx))
+    for counts in new_paths:
+        for name in report:
+            report[name]["launches"] += counts.get(name, 0)
 
     for name, row in report.items():
         check(row["launches"] > 0, f"{name} was not launched on its path")

@@ -154,8 +154,8 @@ def test_config_loads_reference_files_and_rejects_unported():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfg = load_config(os.path.join(repo, "configs", "medium-pgd.json"))
     assert (cfg.config, cfg.method, cfg.line_search) == ("medium", "pgd", "exact")
-    with pytest.raises(NotImplementedError, match="refine"):
-        RunConfig.from_dict({"config": "tiny", "refine": 3})
+    with pytest.raises(NotImplementedError, match="checkpoint_path"):
+        RunConfig.from_dict({"config": "tiny", "checkpoint_path": "ck"})
     with pytest.raises(NotImplementedError, match="mesh_block"):
         RunConfig.from_dict({"config": "tiny", "mesh_block": 8})
     assert load_config("tiny", device="cpu").device == "cpu"

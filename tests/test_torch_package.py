@@ -7,6 +7,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from torch_port_helpers import KERNELS
@@ -131,16 +132,8 @@ def test_default_device_without_a_card_raises():
 
 UNPORTED = {
     "mesh": dict(mesh=object()),
-    "refine": dict(refine=2),
-    "refine_tol": dict(refine_tol=1e-6),
-    "certify": dict(certify=10),
     "checkpoint_path": dict(checkpoint_path="ck"),
     "resume": dict(resume=True),
-    "method_apgd": dict(method="apgd"),
-    "method_lbfgs": dict(method="lbfgs"),
-    "method_eg": dict(method="eg"),
-    "method_fw": dict(method="frank_wolfe"),
-    "method_afw": dict(method="afw"),
 }
 
 
@@ -151,6 +144,47 @@ def test_unported_options_raise(name):
     prob = bt.synthetic.tiny_dense(num_blocks=4, dim=3, m=10)
     with pytest.raises(NotImplementedError, match="not ported"):
         bt.solve(prob, device="cpu", **UNPORTED[name])
+
+
+# options that raised "not ported" until the refine/certify and solver-family
+# slice; they now run on the CPU and give what the reference gives
+PORTED = {
+    "refine": dict(method="lbfgs", refine=2),
+    "refine_tol": dict(method="lbfgs", refine_tol=1e-6),
+    "certify": dict(certify=10),
+    "method_apgd": dict(method="apgd"),
+    "method_lbfgs": dict(method="lbfgs"),
+    "method_eg": dict(method="eg"),
+    "method_fw": dict(method="frank_wolfe"),
+    "method_afw": dict(method="afw"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_options_of_the_refine_and_family_slice_run(name):
+    import bsls_tpu
+    from bsls_tpu.models import synthetic as jsyn
+
+    import bsls_tpu_torch as bt
+
+    prob = bt.synthetic.tiny_dense(num_blocks=4, dim=3, m=10)
+    kw = dict(tol=0.0, max_iter=100, lipschitz=bt.solvers.power_lipschitz(
+        bt.prepare(prob, device="cpu")), **PORTED[name])
+    res = bt.solve(prob, device="cpu", **kw)
+    ref = bsls_tpu.solve(jsyn.tiny_dense(num_blocks=4, dim=3, m=10), **kw)
+    assert res.x.shape == ref.x.shape == (prob.partition.n_flat,)
+    assert res.iterations == ref.iterations
+    refined = "refine" in name
+    if name == "refine_tol":
+        # both certified to 1e-6 (relative to max(1, |f|)), each where it stopped
+        assert res.refine_fw_gap <= 1e-6 and ref.refine_fw_gap <= 1e-6
+        assert abs(res.objective - ref.objective) <= 1e-6
+    else:
+        # refine: float64 at the optimum; the others fp32 after 100 steps
+        np.testing.assert_allclose(res.objective, ref.objective, rtol=1e-9 if refined else 1e-4)
+        np.testing.assert_allclose(res.x, ref.x, atol=1e-6 if refined else 1e-4)
+    assert (res.refine_fw_gap is None) == (ref.refine_fw_gap is None)
+    assert (res.refine_secs > 0) == refined
 
 
 def test_equality_constrained_problem_raises():
@@ -185,12 +219,26 @@ def test_cli_runs_on_the_cpu_and_counts_no_launch():
     assert bt.launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
-@pytest.mark.parametrize("flag", [["--refine", "3"], ["--mesh-block", "8"], ["--resume"],
+@pytest.mark.parametrize("flag", [["--profile-dir", "p"], ["--mesh-block", "8"], ["--resume"],
                                   ["--checkpoint", "ck"], ["--unroll", "4"]])
 def test_cli_rejects_flags_of_unported_parts(flag):
     proc = _cli("--device", "cpu", "--config", "tiny", *flag)
     assert proc.returncode == 2
     assert "unrecognized arguments" in proc.stderr
+
+
+def test_cli_refine_prints_refine_secs():
+    proc = _cli("--device", "cpu", "--config", "tiny", "--method", "lbfgs", "--max-iter", "200",
+                "--refine", "2")
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["method"] == "lbfgs" and out["refine_secs"] > 0
+    assert out["iterations"] > 200 and "refine_fw_gap" not in out
+    proc = _cli("--device", "cpu", "--config", "tiny", "--method", "afw", "--max-iter", "200",
+                "--refine-tol", "1e-6")
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["refine_fw_gap"] <= 1e-6 and out["refine_secs"] > 0
 
 
 def test_cli_default_device_fails_without_a_card():
@@ -200,7 +248,7 @@ def test_cli_default_device_fails_without_a_card():
         pytest.skip("a CUDA device is present")
     proc = _cli("--config", "tiny")
     assert proc.returncode != 0 and "cuda" in proc.stderr
-    proc = _cli("--device", "cpu", "--config", "tiny", "--method", "lbfgs")
+    proc = _cli("--device", "cpu", "--config", "traffic")
     assert proc.returncode != 0 and "not ported" in proc.stderr
     proc = _cli("--config", "medium-banded")
     assert proc.returncode != 0 and "cuda" in proc.stderr
