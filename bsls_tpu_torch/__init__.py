@@ -8,10 +8,13 @@ Ported so far: the batched solve with all six solver families (pgd with the
 exact, bb, bbm, fixed and pava line searches, apgd, lbfgs in x- and z-space,
 eg, frank_wolfe, afw) on the gather and the banded layout, ``certify=K``,
 ``refine=K`` and ``refine_tol=``, and the opt-in fused chunk
-(``BSLS_MEGA=1``), with CUDA kernels (``csrc/``) for the block-simplex
-projection, the bounded isotonic regression, the two per-page band
-contractions and the fused chunk of PGD iterations.  Entry points take ``device=`` and default to ``"cuda"``;
-they run on the CPU only when asked to.
+(``BSLS_MEGA=1``), and the equality-constrained path (``solve`` of a
+``Problem`` with ``C``: the augmented-Lagrangian loop on the stacked operator
+[A; sqrt(rho) C], its float64 host layer and ``oracle_solve_eq``), with CUDA
+kernels (``csrc/``) for the block-simplex projection, the bounded isotonic
+regression, the two per-page band contractions and the fused chunk of PGD
+iterations.  Entry points take ``device=`` and default to ``"cuda"``; they
+run on the CPU only when asked to.
 
 Precision: fp32 on the device with float64 anchors on the host.  Dense and
 batched contractions stay at full fp32 — reduced-precision matrix passes cap
@@ -30,11 +33,12 @@ from .models import (  # noqa: E402
     OracleResult,
     Problem,
     oracle_solve,
+    oracle_solve_eq,
     synthetic,
 )
 from .ops.layout import DeviceProblem, prepare  # noqa: E402
 from .ops.cudalib import launch_counts, reset_launch_counts  # noqa: E402
-from .solvers import SolveResult, solve  # noqa: E402
+from .solvers import SolveResult, solve, solve_equality_constrained  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -45,11 +49,13 @@ __all__ = [
     "OracleResult",
     "Problem",
     "oracle_solve",
+    "oracle_solve_eq",
     "synthetic",
     "DeviceProblem",
     "prepare",
     "SolveResult",
     "solve",
+    "solve_equality_constrained",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -5,12 +5,17 @@
     python -m bsls_tpu_torch --preset medium-banded [--layout gather]
     python -m bsls_tpu_torch --preset medium-lbfgs --scenarios 128 --refine 3
     python -m bsls_tpu_torch --config tiny --method afw --refine-tol 1e-8 --device cpu
+    python -m bsls_tpu_torch --preset traffic --refine-tol 1e-6
+    python -m bsls_tpu_torch --config tiny --scenarios 4 --oracle --device cpu
     python -m bsls_tpu_torch --config instance.npz --oracle
 
 Emits one JSON result line: iterations/s, objective, FW gap, the torch
-device, ``refine_secs``/``refine_fw_gap`` after a polish, and
-objective-vs-oracle with time-to-1e-6-relative-gap when --oracle supplies
-f*.  Every solver family of the reference runs (``--method``).  Flags of
+device, ``refine_secs``/``refine_fw_gap`` after a polish, ``eq_violation``
+for an equality-constrained instance (``traffic``; it runs the
+augmented-Lagrangian loop on the gather layout), and objective-vs-oracle
+with time-to-1e-6-relative-gap when --oracle supplies f*: one f* per
+scenario, and ``rel_gap_vs_oracle`` is the worst scenario's gap against its
+own f*.  Every solver family of the reference runs (``--method``).  Flags of
 parts that are not ported yet (mesh, checkpoints, profiling) do not exist
 here and are rejected by the parser.
 """
@@ -26,7 +31,8 @@ import numpy as np
 def build_parser():
     p = argparse.ArgumentParser(prog="bsls_tpu_torch")
     p.add_argument("--preset", default=None, help="named preset from utils.config")
-    p.add_argument("--config", default=None, help="tiny|medium|large|path.npz|path.json")
+    p.add_argument("--config", default=None,
+                   help="tiny|medium|medium_banded|traffic|traffic_random|large|path.npz|path.json")
     p.add_argument("--method", default=None,
                    help="pgd|apgd|fista|lbfgs|eg|mirror_descent|frank_wolfe|fw|afw|pairwise|"
                         "pairwise_fw")
@@ -89,31 +95,45 @@ def main(argv=None):
     if cfg.oracle:
         from bsls_tpu_torch.models.oracle import cached_oracle_objective
 
-        # cache per (config, seed): the float64 oracle on large instances
-        # costs minutes and is deterministic; ad-hoc file paths skip the cache
-        single = cfg.scenarios <= 1 and cfg.config in _CONFIGS
-        f_star = cached_oracle_objective(prob, f"{cfg.config}_{cfg.seed}" if single else None)
+        # cache per (config, seed[, scenario]): the float64 oracle on large
+        # instances costs minutes and is deterministic; ad-hoc file paths
+        # skip the cache.  Each scenario is its own instance with its own f*.
+        key = f"{cfg.config}_{cfg.seed}" if cfg.config in _CONFIGS else None
+        S = prob.num_scenarios
+        if np.ndim(prob.b) == 2:
+            f_star = np.array([
+                cached_oracle_objective(prob, key and f"{key}_x{S}_s{s}", scenario=s)
+                for s in range(S)])
+        else:
+            f_star = cached_oracle_objective(prob, key)
 
+    eq = prob.C is not None
+    if eq and (cfg.layout == "banded" or not cfg.equilibrate):
+        raise ValueError("an equality-constrained instance runs on the equilibrated gather "
+                         "layout of its stacked operator: drop --layout banded / "
+                         "equilibrate=false")
     with MetricsWriter(cfg.metrics_path) as mw:
         mw.log("config", **json.loads(cfg.to_json()))
-        dp = bsls.prepare(prob, dtype=getattr(torch, cfg.dtype), equilibrate=cfg.equilibrate,
-                          layout=cfg.layout, device=dev)
-        res = bsls.solve(
-            dp,
-            method=cfg.method,
-            line_search=cfg.line_search,
-            tol=cfg.tol,
-            max_iter=cfg.max_iter,
-            chunk=cfg.chunk,
-            step_size=cfg.step_size,
-            metrics=mw if cfg.metrics_path else None,
-        )
-        # the polish of solve(refine=...) on the prepared layout (solve takes
-        # the refine options only with the host Problem, which it prepares
-        # itself under layout="auto")
+        kw = dict(method=cfg.method, line_search=cfg.line_search, tol=cfg.tol,
+                  max_iter=cfg.max_iter, chunk=cfg.chunk, step_size=cfg.step_size,
+                  metrics=mw if cfg.metrics_path else None)
         rounds = cfg.refine or (DEFAULT_REFINE_ROUNDS if cfg.refine_tol is not None else 0)
-        if rounds:
-            res = refine_polish(prob, dp, res, rounds=rounds, target_rel_gap=cfg.refine_tol)
+        if eq:
+            # the augmented-Lagrangian loop prepares its stacked operator
+            # itself; refine/refine_tol are its finishing outers
+            dp = None
+            res = bsls.solve(prob, dtype=getattr(torch, cfg.dtype), refine=cfg.refine,
+                             refine_tol=cfg.refine_tol, device=dev, **kw)
+        else:
+            dp = bsls.prepare(prob, dtype=getattr(torch, cfg.dtype),
+                              equilibrate=cfg.equilibrate, layout=cfg.layout, device=dev)
+            res = bsls.solve(dp, **kw)
+            # the polish of solve(refine=...) on the prepared layout (solve
+            # takes the refine options only with the host Problem, which it
+            # prepares itself under layout="auto")
+            if rounds:
+                res = refine_polish(prob, dp, res, rounds=rounds,
+                                    target_rel_gap=cfg.refine_tol)
 
         ips = res.steady_iters_per_sec()
         out = {
@@ -121,7 +141,7 @@ def main(argv=None):
             "method": cfg.method,
             "line_search": cfg.line_search,
             "scenarios": cfg.scenarios,
-            "layout": "banded" if isinstance(dp.A, DeviceBanded) else "gather",
+            "layout": "banded" if dp is not None and isinstance(dp.A, DeviceBanded) else "gather",
             "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
             "n_devices": 1,
             "iterations": int(res.iterations),
@@ -131,14 +151,18 @@ def main(argv=None):
             "iters_per_sec": round(ips, 3),
             "gen_secs": round(t_gen, 3),
         }
+        if res.eq_violation is not None:
+            out["eq_violation"] = res.eq_violation
         if rounds:
             out["refine_secs"] = round(res.refine_secs, 3)
         if res.refine_fw_gap is not None:
             out["refine_fw_gap"] = res.refine_fw_gap
         if f_star is not None:
-            out["oracle_objective"] = f_star
-            f = float(np.max(np.asarray(res.objective)))
-            out["rel_gap_vs_oracle"] = (f - f_star) / max(1.0, abs(f_star))
+            fs = np.asarray(f_star, np.float64)
+            out["oracle_objective"] = fs.tolist()
+            f = np.asarray(res.objective, np.float64)
+            # the worst scenario's gap against its own f*
+            out["rel_gap_vs_oracle"] = float(np.max((f - fs) / np.maximum(1.0, np.abs(fs))))
             t6 = res.time_to_gap(f_star, rel=1e-6)
             out["time_to_1e-6_gap_s"] = None if t6 is None else round(t6, 4)
         mw.log("result", **out)

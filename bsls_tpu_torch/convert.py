@@ -18,11 +18,22 @@ the layout that the reference's ``prepare`` built.
     A.resid.rows, A.resid.vals, A.resid.mv_cols, ...    its residual ELL (the
                                                         ELL keys above under
                                                         the stem A.resid)
+    A.top.*, A.bottom.*, A.bottom_scale, A.split        the stacked operator
+                                                        [top; scale * bottom]
+                                                        of the equality-
+                                                        constrained path (each
+                                                        part under the keys
+                                                        above, stem A.top or
+                                                        A.bottom)
     b, perm, row_perm, n_user, num_rows
     buckets[i].mask / .sizes / .radius / .width
 
 ``state_from_numpy`` keys: ``xp[i]``, ``r``, ``f``, ``gap``, ``k``,
 ``x_prev``, ``g_prev``; arrays without a scenario axis get one of length 1.
+
+``al_state_from_numpy`` keys: ``eq_lam``, ``eq_rho``, ``x`` (a result of the
+augmented-Lagrangian loop); it returns the warm-start arguments of
+``solve_equality_constrained``.
 """
 from __future__ import annotations
 
@@ -30,11 +41,12 @@ import numpy as np
 import torch
 
 from .ops.layout import (
-    DeviceBanded, DeviceBucket, DeviceDense, DeviceEll, DeviceProblem, resolve_device,
+    DeviceBanded, DeviceBucket, DeviceDense, DeviceEll, DeviceProblem, DeviceVStack,
+    resolve_device,
 )
 from .solvers.pgd import PGDState
 
-__all__ = ["device_problem_from_numpy", "state_from_numpy"]
+__all__ = ["device_problem_from_numpy", "state_from_numpy", "al_state_from_numpy"]
 
 
 def _numbered(d: dict, stem: str):
@@ -58,7 +70,7 @@ def device_problem_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> De
     def opt(key, conv):
         return conv(d[key]) if d.get(key) is not None else None
 
-    def ell(stem):
+    def ell(stem, num_rows):
         mv_cols, mv_vals = _numbered(d, f"{stem}.mv_cols"), _numbered(d, f"{stem}.mv_vals")
         rt_rows, rt_vals = _numbered(d, f"{stem}.rt_rows"), _numbered(d, f"{stem}.rt_vals")
         return DeviceEll(
@@ -73,23 +85,33 @@ def device_problem_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> De
             rt_zeros=int(d.get(f"{stem}.rt_zeros", 0)),
         )
 
+    def matrix(stem, num_rows):
+        if f"{stem}.data" in d:
+            return DeviceDense(data=fl(d[f"{stem}.data"]))
+        if f"{stem}.split" in d:
+            split = int(d[f"{stem}.split"])
+            return DeviceVStack(
+                top=matrix(f"{stem}.top", split),
+                bottom=matrix(f"{stem}.bottom", num_rows - split),
+                bottom_scale=fl(d[f"{stem}.bottom_scale"]).reshape(()),
+                split=split,
+            )
+        if f"{stem}.bands[0]" in d:
+            bands = tuple(fl(bd) for bd in _numbered(d, f"{stem}.bands"))
+            return DeviceBanded(
+                bands=bands,
+                resid=ell(f"{stem}.resid", num_rows) if f"{stem}.resid.rows" in d else None,
+                num_rows=num_rows,
+                wpages=int(d[f"{stem}.wpages"]),
+                back=int(d[f"{stem}.back"]),
+                n_pf=int(np.asarray(d["perm"]).shape[0]),
+                seg_lens=tuple(int(v) for v in d[f"{stem}.seg_lens"]),
+                pages=int(d.get(f"{stem}.pages") or bands[0].shape[0]),
+            )
+        return ell(stem, num_rows)
+
     num_rows = int(d["num_rows"])
-    if "A.data" in d:
-        A = DeviceDense(data=fl(d["A.data"]))
-    elif "A.bands[0]" in d:
-        bands = tuple(fl(bd) for bd in _numbered(d, "A.bands"))
-        A = DeviceBanded(
-            bands=bands,
-            resid=ell("A.resid") if "A.resid.rows" in d else None,
-            num_rows=num_rows,
-            wpages=int(d["A.wpages"]),
-            back=int(d["A.back"]),
-            n_pf=int(np.asarray(d["perm"]).shape[0]),
-            seg_lens=tuple(int(v) for v in d["A.seg_lens"]),
-            pages=int(d.get("A.pages") or bands[0].shape[0]),
-        )
-    else:
-        A = ell("A")
+    A = matrix("A", num_rows)
     buckets = []
     while f"buckets[{len(buckets)}].mask" in d:
         stem = f"buckets[{len(buckets)}]"
@@ -128,3 +150,14 @@ def state_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> PGDState:
         x_prev=lead(d["x_prev"], 2),
         g_prev=lead(d["g_prev"], 2),
     )
+
+
+def al_state_from_numpy(d: dict) -> dict:
+    """The augmented-Lagrangian state ``eq_lam`` ((p,) or (S, p)), ``eq_rho``
+    and ``x`` ((N,) or (S, N)) as the warm-start arguments ``lam0``,
+    ``rho_init`` and ``x0`` of ``solve_equality_constrained``."""
+    return {
+        "lam0": np.array(d["eq_lam"], np.float64),
+        "rho_init": float(d["eq_rho"]),
+        "x0": np.array(d["x"], np.float64),
+    }

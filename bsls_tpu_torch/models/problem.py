@@ -6,8 +6,8 @@ Host-side (numpy/scipy) representation.  The device-side prepared form
 A copy of the host model of ``bsls_tpu/models/problem.py`` (numpy only; the
 two packages share no module): scipy-sparse or dense ``A``, ``b`` of shape
 (m,) or (S, m), a ``block_sizes`` vector, optional equality constraints, and
-the ``.npz`` instance format.  The stacked/scaled operators of the
-equality-constrained path and the MATLAB ``.mat`` loader are not ported yet.
+the ``.npz`` instance format, and the stacked/scaled operators of the
+equality-constrained path.  The MATLAB ``.mat`` loader is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import numpy as np
 
 from .partition import BlockPartition
 
-__all__ = ["DenseMatrix", "EllMatrix", "Problem"]
+__all__ = ["DenseMatrix", "EllMatrix", "VStackMatrix", "ScaledMatrix", "Problem"]
 
 
 @dataclass(frozen=True)
@@ -153,6 +153,60 @@ class EllMatrix:
             (self.vals.ravel()[mask], (self.rows.ravel()[mask], cols[mask])),
             shape=self.shape,
         )
+
+
+@dataclass(frozen=True)
+class VStackMatrix:
+    """Vertical stack [A1; A2]: used by the augmented-Lagrangian solver to
+    form [A; sqrt(rho) C] without densifying or re-encoding either part."""
+
+    top: "DenseMatrix | EllMatrix"
+    bottom: "DenseMatrix | EllMatrix | ScaledMatrix"
+
+    @property
+    def shape(self):
+        return (self.top.shape[0] + self.bottom.shape[0], self.top.shape[1])
+
+    def matvec(self, x: np.ndarray) -> np.ndarray:
+        return np.concatenate([self.top.matvec(x), self.bottom.matvec(x)])
+
+    def rmatvec(self, r: np.ndarray) -> np.ndarray:
+        m1 = self.top.shape[0]
+        return self.top.rmatvec(r[:m1]) + self.bottom.rmatvec(r[m1:])
+
+    def to_scipy(self):
+        # keeps refine_polish on the stacked problem on the CSR host path
+        # instead of the ~10x slower per-part bincount matvecs
+        import scipy.sparse as sp
+
+        return sp.vstack([sp.csr_matrix(self.top.to_scipy()),
+                          sp.csr_matrix(self.bottom.to_scipy())],
+                         format="csr")
+
+
+@dataclass(frozen=True)
+class ScaledMatrix:
+    """scale * M, lazily applied (used for sqrt(rho) C in augmented systems)."""
+
+    inner: "DenseMatrix | EllMatrix"
+    scale: float
+
+    @property
+    def shape(self):
+        return self.inner.shape
+
+    def matvec(self, x: np.ndarray) -> np.ndarray:
+        return self.scale * self.inner.matvec(x)
+
+    def rmatvec(self, r: np.ndarray) -> np.ndarray:
+        return self.scale * self.inner.rmatvec(r)
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        M = self.inner.to_scipy()
+        return (self.scale * sp.csr_matrix(M) if sp.issparse(M)
+                else self.scale * np.asarray(M))
 
 
 @dataclass(frozen=True)

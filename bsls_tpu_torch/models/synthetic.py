@@ -7,8 +7,7 @@ meaningful (route fractions).
 
 A copy of ``bsls_tpu/models/synthetic.py`` with the same seeds and the same
 draw order: the same seed gives the same instance in both packages
-(tests/test_torch_models.py asserts it).  The grid-network generator
-(config "traffic") is not ported yet.
+(tests/test_torch_models.py and tests/test_torch_traffic.py assert it).
 """
 from __future__ import annotations
 
@@ -194,9 +193,9 @@ def with_scenarios(prob: Problem, num_scenarios: int, seed: int = 1,
 
 
 def _traffic_net(**kw):
-    raise NotImplementedError(
-        "config 'traffic' (grid-network route flow, equality-constrained) is "
-        "not ported yet (later slice: equality-constrained path)")
+    from .traffic import grid_traffic
+
+    return grid_traffic(**kw)
 
 
 _CONFIGS = {

@@ -11,6 +11,7 @@ from .layout import (
     DeviceDense,
     DeviceEll,
     DeviceProblem,
+    DeviceVStack,
     block_scales,
     extract_user_flat,
     feasible_init,
@@ -51,6 +52,7 @@ __all__ = [
     "DeviceDense",
     "DeviceEll",
     "DeviceProblem",
+    "DeviceVStack",
     "block_scales",
     "extract_user_flat",
     "feasible_init",

@@ -15,9 +15,12 @@ Counterpart of ``bsls_tpu/ops/layout.py`` for one device.  Where the
 reference vmaps over scenarios, every function here takes an explicit leading
 scenario axis: a flat vector is ``(n,)`` or ``(S, n)``, a padded bucket
 ``(Bk, w)`` or ``(S, Bk, w)``.  ``prepare(layout="auto")`` tries the banded
-layout (``ops/banded.py``) for a sparse A with fewer than 16 scenarios and
-keeps the gather layout otherwise.  The sharded encodings and the stacked
-operator of the equality-constrained path are not ported yet.
+layout (``ops/banded.py``) for a sparse A (an ``EllMatrix``) with fewer than
+16 scenarios and keeps the gather layout otherwise.  The stacked operator
+``[A; s C]`` of the equality-constrained path is a ``DeviceVStack`` of two
+gather-layout parts whose scale ``s`` is a 0-d tensor, so the augmented
+Lagrangian's penalty changes without a new ``prepare``.  The sharded
+encodings are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,13 +32,14 @@ import numpy as np
 import torch
 
 from ..models.partition import BlockPartition
-from ..models.problem import DenseMatrix, EllMatrix, Problem
+from ..models.problem import DenseMatrix, EllMatrix, Problem, ScaledMatrix, VStackMatrix
 from .banded import PAGE, DeviceBanded, banded_matvec, banded_rmatvec, build_banded_split
 
 __all__ = [
     "DeviceDense",
     "DeviceEll",
     "DeviceBanded",
+    "DeviceVStack",
     "DeviceBucket",
     "DeviceProblem",
     "build_pf_perm",
@@ -109,7 +113,21 @@ class DeviceEll:
 
 ROW_ELL_MAX_K = 512
 
-DeviceMatrix = Union[DeviceDense, DeviceEll, DeviceBanded]
+
+@dataclass(frozen=True)
+class DeviceVStack:
+    """[top; scale * bottom] vertical stack (the augmented-Lagrangian operator
+    [A; sqrt(rho) C]).  ``bottom_scale`` is a 0-d tensor on the device, so rho
+    changes by swapping it, with no re-preparation; ``split`` is the number
+    of rows of the top part."""
+
+    top: "DeviceMatrix"
+    bottom: "DeviceMatrix"
+    bottom_scale: torch.Tensor  # 0-d
+    split: int
+
+
+DeviceMatrix = Union[DeviceDense, DeviceEll, DeviceBanded, DeviceVStack]
 
 
 @dataclass(frozen=True)
@@ -358,6 +376,18 @@ def to_device_matrix(
             mv_vals=None if mv_vals is None else fl(mv_vals),
             num_rows=M.num_rows,
         )
+    if isinstance(M, VStackMatrix):
+        # each part keeps its own row order (no row-nnz bucketing: the
+        # stacked right-hand side is [b; b_bottom] as the caller builds it)
+        scale, bottom = 1.0, M.bottom
+        if isinstance(bottom, ScaledMatrix):
+            scale, bottom = bottom.scale, bottom.inner
+        return DeviceVStack(
+            top=to_device_matrix(M.top, perm, dtype, col_scale, device=dev),
+            bottom=to_device_matrix(bottom, perm, dtype, col_scale, device=dev),
+            bottom_scale=torch.tensor(scale, dtype=dtype, device=dev),
+            split=M.top.shape[0],
+        )
     raise TypeError(f"unsupported host matrix type {type(M)}")
 
 
@@ -367,6 +397,10 @@ def _col_norms_sq(M) -> np.ndarray:
         return (np.asarray(M.data) ** 2).sum(axis=0)
     if isinstance(M, EllMatrix):
         return (np.asarray(M.vals) ** 2).sum(axis=1)
+    if isinstance(M, ScaledMatrix):
+        return M.scale**2 * _col_norms_sq(M.inner)
+    if isinstance(M, VStackMatrix):
+        return _col_norms_sq(M.top) + _col_norms_sq(M.bottom)
     raise TypeError(f"unsupported host matrix type {type(M)}")
 
 
@@ -534,14 +568,20 @@ def prepare(
     is not bandable; with more scenarios it keeps the gather layout (the band
     tensors stream the same bytes whatever S is, while scenario batching
     amortises the gathers — the reference's crossover, kept as its
-    behaviour).  ``layout="banded"`` forces the band at any S and raises on a
-    dense A; ``layout="gather"`` never tries it."""
+    behaviour).  ``layout="banded"`` forces the band at any S and raises on
+    any other A; ``layout="gather"`` never tries it.  A stacked
+    ``VStackMatrix`` always takes the gather layout.
+
+    A ``Problem`` with equality constraints (``C``) is not prepared here:
+    ``solve()`` runs it through the augmented-Lagrangian loop, which prepares
+    the stacked problem ``[A; sqrt(rho) C]`` (whose ``C`` is ``None``)."""
     if layout not in ("auto", "banded", "gather"):
         raise ValueError(f"unknown layout {layout!r}")
     if problem.C is not None:
-        raise NotImplementedError(
-            "equality-constrained instances (Problem.C) are not ported yet "
-            "(later slice: equality-constrained path)")
+        raise ValueError(
+            "prepare() takes no equality-constrained Problem (Problem.C is set): "
+            "pass it to solve(), which runs the augmented-Lagrangian loop "
+            "(solvers.eq_constrained) on the stacked operator [A; sqrt(rho) C]")
     dev = resolve_device(device)
     b_host = np.asarray(problem.b)
     num_scenarios = int(b_host.shape[0]) if b_host.ndim == 2 else 1
@@ -719,6 +759,8 @@ def matvec(A: DeviceMatrix, x: torch.Tensor) -> torch.Tensor:
     if isinstance(A, DeviceDense):
         # full fp32: TF32 is off package-wide (see bsls_tpu_torch/__init__.py)
         return x @ A.data.t()
+    if isinstance(A, DeviceVStack):
+        return torch.cat([matvec(A.top, x), A.bottom_scale * matvec(A.bottom, x)], dim=-1)
     if isinstance(A.mv_cols, tuple):
         # row-nnz-bucketed: per-width partials concatenate contiguously in
         # the (nnz-sorted) permuted row order — no scatter, minimal rows
@@ -742,6 +784,11 @@ def rmatvec(A: DeviceMatrix, r: torch.Tensor) -> torch.Tensor:
         return g if A.resid is None else g + rmatvec(A.resid, r)
     if isinstance(A, DeviceDense):
         return r @ A.data
+    if isinstance(A, DeviceVStack):
+        # one device holds all rows, so the top/bottom boundary is the static
+        # split (the reference's _vstack_top_rows for unsharded rows)
+        return (rmatvec(A.top, r[..., :A.split])
+                + A.bottom_scale * rmatvec(A.bottom, r[..., A.split:]))
     if A.rt_rows is not None:
         # col-nnz-bucketed: gather only real nonzeros (grouped widths),
         # zero-nnz columns emitted directly, one rank gather to PF order

@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 from .layout import (
-    DeviceBanded, DeviceDense, DeviceEll, DeviceProblem, flat_to_padded, matvec, rdot, rmatvec,
+    DeviceBanded, DeviceDense, DeviceEll, DeviceProblem, DeviceVStack, flat_to_padded, matvec,
+    rdot, rmatvec,
 )
 
 __all__ = [
@@ -33,6 +34,8 @@ def _diag_flat(A) -> torch.Tensor:
         return (A.data * A.data).sum(dim=0)
     if isinstance(A, DeviceEll):
         return (A.vals * A.vals).sum(dim=-1)
+    if isinstance(A, DeviceVStack):
+        return _diag_flat(A.top) + A.bottom_scale**2 * _diag_flat(A.bottom)
     raise TypeError(f"unsupported device matrix {type(A)}")
 
 

@@ -2,7 +2,11 @@ from .base import (
     SolveOptions, SolveResult, StopTracker, fw_gap, power_lipschitz,
     power_lipschitz_z, refine_polish, solve, uses_zspace,
 )
-from . import apgd, frank_wolfe, lbfgs, mirror_descent, pgd
+from .eq_constrained import (
+    eq_dual_bound, eq_multiplier_polish, prox_bpp_polish, solve_eq_sensitivity,
+    solve_equality_constrained,
+)
+from . import apgd, eq_constrained, frank_wolfe, lbfgs, mirror_descent, pgd
 
 __all__ = [
     "SolveOptions",
@@ -14,7 +18,13 @@ __all__ = [
     "uses_zspace",
     "refine_polish",
     "solve",
+    "solve_equality_constrained",
+    "solve_eq_sensitivity",
+    "prox_bpp_polish",
+    "eq_dual_bound",
+    "eq_multiplier_polish",
     "apgd",
+    "eq_constrained",
     "frank_wolfe",
     "lbfgs",
     "mirror_descent",

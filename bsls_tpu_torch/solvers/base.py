@@ -28,10 +28,14 @@ iterate, and ``refine=K`` / ``refine_tol=`` polish the result against a
 float64 anchor on the host (``refine_polish``; its correction is a batched
 fp32 CG on the device, or a float64 Jacobi-PCG on the host).
 
+A ``Problem`` with equality constraints (``C``) goes to the
+augmented-Lagrangian loop of ``solvers/eq_constrained.py``, whose inner
+solves are this chunk runner on the stacked operator [A; sqrt(rho) C].
+
 Counterpart of ``bsls_tpu/solvers/base.py`` for all six solver families
-(``_get_solver``), certify and refine on one device.  The mesh-sharded
-solve, checkpoint/resume and the equality-constrained path are not ported
-yet and raise ``NotImplementedError``; none is silently ignored.
+(``_get_solver``), certify, refine and the equality-constrained path on one
+device.  The mesh-sharded solve and checkpoint/resume are not ported yet and
+raise ``NotImplementedError``; none is silently ignored.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ import numpy as np
 import torch
 
 from ..models.problem import Problem
+from ..ops import cudalib
 from ..ops import layout as L
 from ..ops import ztransform as Z
 from ..ops.projection import proj_blocks
@@ -94,6 +99,12 @@ class SolveResult:
     # (gap / max(1, |f|), worst scenario): f - f* <= refine_fw_gap is SOUND
     # with no oracle.  Set by refine_polish when target_rel_gap is given.
     refine_fw_gap: Optional[float] = None
+    # equality-constrained solves (solvers/eq_constrained.py): relative
+    # ||Cx - d||_inf / max(1, ||d||_inf) of the worst scenario, and the final
+    # augmented-Lagrangian state (multipliers (p,) or (S, p), penalty)
+    eq_violation: Optional[float] = None
+    eq_lam: Optional[np.ndarray] = None
+    eq_rho: Optional[float] = None
 
     def steady_iters_per_sec(self, skip: int = 1) -> float:
         """Solver iterations/sec from the paired (chunk_iters, chunk_times)
@@ -109,11 +120,17 @@ class SolveResult:
         dt = float(np.sum(t[skip:]))
         return float((i[-1] - start) / dt) if dt > 0 else 0.0
 
-    def time_to_gap(self, f_star: float, rel: float = 1e-6) -> float | None:
-        """Wall seconds until f <= f* + rel*max(1,|f*|), from the chunk trace."""
-        thresh = f_star + rel * max(1.0, abs(f_star))
-        tf = self.trace_f if self.trace_f.ndim == 1 else self.trace_f.max(axis=0)
-        hits = np.nonzero(tf <= thresh)[0]
+    def time_to_gap(self, f_star, rel: float = 1e-6) -> float | None:
+        """Wall seconds until f <= f* + rel*max(1,|f*|), from the chunk trace.
+        For a multi-RHS trace every scenario must be there; ``f_star`` is one
+        value for all or one per scenario, (S,)."""
+        f_star = np.asarray(f_star, np.float64)
+        thresh = f_star + rel * np.maximum(1.0, np.abs(f_star))
+        if self.trace_f.ndim == 1:
+            ok = self.trace_f <= thresh
+        else:
+            ok = np.all(self.trace_f <= np.reshape(thresh, (-1, 1)), axis=0)
+        hits = np.nonzero(ok)[0]
         if hits.size == 0:
             return None
         it = hits[0] + 1
@@ -281,6 +298,7 @@ def _reject_unported(**given):
     """Options of ``bsls_tpu.solve`` whose part is not ported yet."""
     later = {
         "mesh": "distribution",
+        "shard_rows": "distribution",
         "checkpoint_path": "checkpoint/CLI rest",
         "resume": "checkpoint/CLI rest",
     }
@@ -288,6 +306,22 @@ def _reject_unported(**given):
         if value:
             raise NotImplementedError(
                 f"solve({name}=...) is not ported yet (later slice: {later[name]})")
+
+
+def _warm_up(device: torch.device, first_launch: Callable[[], Any]) -> None:
+    """Load the kernel library (building it with nvcc when it is stale) and
+    make the path's first launches, before the chunk clock starts: a fresh
+    process would otherwise book the load, the first launch of every kernel
+    (the fused chunk's first cooperative launch among them) and the first
+    launch of every torch operation into ``chunk_times[0]``, and through it
+    into ``time_to_gap``.  ``first_launch`` runs one step (or one fused
+    chunk) whose result is dropped; the steps do not write into their input
+    state.  No fallback: a library that does not load raises here."""
+    if device.type == "cuda":
+        cudalib.load()
+    first_launch()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _polish_cg(dp, free_pf: torch.Tensor, g0t_pf: torch.Tensor, iters: int) -> torch.Tensor:
@@ -612,8 +646,38 @@ def solve(
     makes the polish adaptive and certified (``refine`` caps the rounds;
     given alone, the cap is ``DEFAULT_REFINE_ROUNDS``), and the certificate
     is returned as ``res.refine_fw_gap``.
+
+    A host ``Problem`` with equality constraints (``C``, ``d``) runs the
+    augmented-Lagrangian loop (``solve_equality_constrained``): ``max_iter``
+    is then its total inner budget, ``refine``/``refine_tol`` its float64
+    finishing outers and certified polish, and the result carries
+    ``eq_violation``, ``eq_lam`` and ``eq_rho``.  ``space``, ``callback``,
+    ``certify``, ``lipschitz`` and a ``stop_rule`` other than "auto" are
+    rejected there.
     """
     _reject_unported(mesh=mesh is not None, checkpoint_path=checkpoint_path, resume=resume)
+    if isinstance(problem, Problem) and problem.C is not None:
+        from .eq_constrained import solve_equality_constrained
+
+        # the AL outer loop supports a subset of solve()'s surface: reject
+        # the rest loudly instead of silently ignoring it (the reference
+        # drops stop_rule; here it is rejected too)
+        unsupported = {
+            "space": space != "x", "callback": callback is not None,
+            "certify": certify > 0, "lipschitz": lipschitz is not None,
+            "stop_rule": stop_rule != "auto",
+        }
+        bad = [k for k, v in unsupported.items() if v]
+        if bad:
+            raise ValueError(
+                f"equality-constrained solve does not support {bad}; run the "
+                "AL loop manually via solvers.eq_constrained if needed")
+        return solve_equality_constrained(
+            problem, method=method, tol=tol, max_iter=max_iter, chunk=chunk,
+            line_search=line_search, step_size=step_size, dtype=dtype,
+            lbfgs_mem=lbfgs_mem, x0=x0, refine=refine, refine_tol=refine_tol,
+            metrics=metrics, device=device,
+        )
     if refine_tol is not None and refine == 0:
         # certified mode with no explicit round cap: default the cap instead
         # of silently ignoring refine_tol
@@ -674,6 +738,9 @@ def solve(
         return st, (tf, tg)
 
     run = mega_run if mega_run is not None else run_chunk
+    if max_iter > 0:
+        _warm_up(dp.device, (lambda: mega_run(state)) if mega_run is not None
+                 else (lambda: solver.step(dp, state, L_est, opts)))
 
     # Chunk loop: K steps enqueued without a host sync, then ONE readback of
     # the end-of-chunk (f, gap), which is also what closes the chunk's wall

@@ -30,7 +30,7 @@ _UNPORTED_OFF = {
 @dataclass
 class RunConfig:
     # instance
-    config: str = "tiny"  # tiny | medium | large | <path.npz>
+    config: str = "tiny"  # tiny | medium | traffic | large | <path.npz>
     seed: int = 0
     instance_kwargs: dict = field(default_factory=dict)
     scenarios: int = 1  # > 1 batches the instance to S right-hand sides
@@ -73,6 +73,9 @@ PRESETS = {
     # corridor-structured instance: prepare(layout="auto") picks the
     # banded-split layout
     "medium-banded": RunConfig(config="medium_banded", method="pgd", line_search="bbm"),
+    # the grid-network route-flow instance with equality constraints
+    # (configs/traffic.json): lbfgs inners of the augmented-Lagrangian loop
+    "traffic": RunConfig(config="traffic", method="lbfgs"),
     "sweep-fw": RunConfig(config="medium", method="frank_wolfe"),
     "sweep-eg": RunConfig(config="medium", method="eg"),
     "sweep-pgd-pava": RunConfig(config="medium", method="pgd", line_search="pava"),

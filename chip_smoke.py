@@ -22,7 +22,15 @@ through ``prepare``/``solve``:
   z-space) on medium x 128, lbfgs and afw on the card against the CPU and on
   the band against gather; ``certify`` (pgd/bbm, then 150 afw steps);
   ``refine`` (lbfgs, then three rounds of the device CG) at S = 128 and the
-  certified ``refine_tol`` (host float64 PCG) at S = 8.
+  certified ``refine_tol`` (host float64 PCG) at S = 8;
+* the equality-constrained path: ``solve_equality_constrained`` (pgd/exact
+  inners on the stacked operator [A; sqrt(rho) C]) on ``traffic_like`` at
+  full width (10,000 blocks, 50 dense constraint rows) x 128 scenarios, the
+  first outer on the card against the CPU at S = 4, the pava line search at
+  S = 4 (kernel 2 in z-space inners), and the preset ``traffic`` with
+  ``refine_tol=1e-6`` against the float64 ``oracle_solve_eq``;
+* in a fresh process, the first chunk of the exact path against the second:
+  the kernel library's load and the first launches come before the clock.
 
 Every phase prints one JSON line; a failed phase raises and the script exits
 non-zero without the result line.  The last line is ``{"ok": true, "device":
@@ -306,10 +314,12 @@ def capture_pava_inputs(dp, iters=40):
         bt.solve(dp, method="pgd", line_search="pava", tol=0.0, max_iter=iters, chunk=iters)
     finally:
         isotonic.pava_bounded = plain_fn
-    check(len(seen) == len(dp.buckets) and all(len(v) == iters for v in seen.values()),
+    # one more per bucket: solve's throwaway warm-up step before its clock,
+    # from the same state as the first iteration
+    check(len(seen) == len(dp.buckets) and all(len(v) == iters + 1 for v in seen.values()),
           f"capture: {[len(v) for v in seen.values()]} pava inputs for {len(dp.buckets)} buckets "
-          f"and {iters} iterations")
-    return seen
+          f"and {iters} iterations plus the warm-up step")
+    return {shape: v[1:] for shape, v in seen.items()}
 
 
 def pooling_share(vs, widths):
@@ -879,7 +889,8 @@ def phase_solve_banded(ctx, max_iter=500):
 
 def phase_solve_mega(ctx, max_iter=1000, chunk=100):
     """The fused chunk through ``solve``: the gate is set here and restored;
-    one launch per chunk, and the trace of the eager path of the same solve."""
+    one launch per chunk (and the warm-up's), and the trace of the eager path
+    of the same solve."""
     prob = ctx["tiny_prob"]
     kw = dict(method="pgd", line_search="exact", tol=0.0, max_iter=max_iter, chunk=chunk,
               lipschitz=bt.solvers.power_lipschitz(ctx["tiny"]), device=DEV)
@@ -902,9 +913,10 @@ def phase_solve_mega(ctx, max_iter=1000, chunk=100):
             else:
                 os.environ[k] = v
         mega.use_mega.cache_clear()
-    check(counts["pgd_chunk"] == max_iter // chunk,
+    # one launch per chunk, and one more: solve's warm-up chunk before its clock
+    check(counts["pgd_chunk"] == max_iter // chunk + 1,
           f"solve_mega: pgd_chunk launched {counts['pgd_chunk']} times for "
-          f"{max_iter // chunk} chunks")
+          f"{max_iter // chunk} chunks and the warm-up")
     check(counts["proj_simplex_rows"] == 1,
           f"solve_mega: {counts['proj_simplex_rows']} projection launches; the fused path "
           "makes one (the final projection)")
@@ -961,13 +973,15 @@ ONE_STEP_LIMIT = 1e-4
 
 
 def _state_to(st, device):
-    """A solver state (frozen dataclass of tensors and tuples of tensors) on
-    another device."""
+    """A solver state or a prepared problem (frozen dataclasses of tensors,
+    tuples of tensors and nested dataclasses) on another device."""
     import dataclasses
 
     def move(v):
         if isinstance(v, tuple):
             return tuple(move(a) for a in v)
+        if dataclasses.is_dataclass(v):
+            return _state_to(v, device)
         return v.to(device) if isinstance(v, torch.Tensor) else v
 
     return type(st)(**{f.name: move(getattr(st, f.name)) for f in dataclasses.fields(st)})
@@ -1243,6 +1257,344 @@ def phase_solve_banded_families(ctx, max_iter=200):
     emit("solve_banded_families", scenarios=4, iterations=max_iter, **out)
     return total
 
+# ------------------------------------------------ the equality-constrained path
+
+# traffic_like at the width of the reference's traffic_random preset: 10,000
+# blocks of width 2-12, A 100,000 x 69,989 with 454,722 nonzeros, a dense C of
+# 50 x 69,989, times 128 scenarios with their own targets d
+EQ_SCENARIOS = 128
+EQ_BUDGET = 2000  # total inner iterations of solve_eq
+EQ_INNER = 400  # at most this many per outer
+EQ_CROSS_ITERS = 100  # the first outer of the card-against-CPU check, S = 4
+
+
+class OuterRecords:
+    """A metrics sink of ``solve_equality_constrained`` that keeps its "outer"
+    records (violation, rho, the inner solve's rho, inner iterations, the
+    seconds of the inner solve and of the host multiplier update)."""
+
+    def __init__(self):
+        self.outer = []
+
+    def log(self, kind, **fields):
+        if kind == "outer":
+            self.outer.append(fields)
+
+
+def _tensor_bytes(obj):
+    """Bytes of every tensor in a prepared problem (dataclasses, tuples)."""
+    import dataclasses
+
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, tuple):
+        return sum(_tensor_bytes(v) for v in obj)
+    if dataclasses.is_dataclass(obj):
+        return sum(_tensor_bytes(getattr(obj, f.name)) for f in dataclasses.fields(obj))
+    return 0
+
+
+def eq_instance(scenarios):
+    base = bt.synthetic.traffic_like(seed=0, num_blocks=10_000, m=100_000, num_eq=50)
+    return base, bt.synthetic.with_scenarios(base, scenarios, seed=1)
+
+
+def _check_simplices(phase, prob, x, limit=1e-5):
+    x = np.atleast_2d(np.asarray(x, np.float64))
+    offs = np.concatenate([[0], np.cumsum(prob.partition.sizes)[:-1]])
+    sums = np.add.reduceat(x, offs, axis=1)
+    check(bool(np.isfinite(x).all()), f"{phase}: non-finite x")
+    check(float(x.min()) >= 0.0 and float(np.abs(sums - 1.0).max()) <= limit,
+          f"{phase}: x is not on the simplices (block sums off by {np.abs(sums - 1).max():.2e})")
+
+
+def _eq_residual_f64(prob, x):
+    """C x - d per scenario, in float64 on the host, and d at the same shape."""
+    C = prob.C.to_scipy()
+    X = np.atleast_2d(np.asarray(x, np.float64))
+    d = np.broadcast_to(np.atleast_2d(np.asarray(prob.d, np.float64)), (X.shape[0], C.shape[0]))
+    return np.asarray(C @ X.T).T - d, d
+
+
+def check_rows_at(name, dp, scenarios, seed):
+    """A row kernel against its plain version at the buckets of a path: the
+    widths and radii of its prepared problem, ``scenarios`` leading. Each
+    bucket is also timed (device time of one launch, inputs cycled past the
+    L2) beside its bytes bound; both kernels template the same widths, and
+    every other width takes their generic form."""
+    spec, errs, per_bucket = KERNELS[name], [], []
+    for i, bk in enumerate(dp.buckets):
+        Bk, w = bk.mask.shape
+        widths = spec["widths_of"](bk)
+        rng = np.random.default_rng(seed + i)
+        n_in = inputs_in_turn(4 * scenarios * Bk * w)
+        vs = [torch.from_numpy((rng.standard_normal((scenarios, Bk, w)) * 2).astype(np.float32))
+              .to(DEV) * bk.radius[:, None] for _ in range(n_in)]
+        errs.append(compare_rows(name, spec, vs[0], widths, bk.radius))
+        k_ms = device_ms(lambda j: spec["fn"](vs[j % n_in], widths, bk.radius))
+        b_ms, by = bound(2 * 4 * scenarios * Bk * w + 8 * Bk,
+                         scenarios * Bk * spec["ops_per_row"](w))
+        per_bucket.append({"shape": [scenarios, Bk, w],
+                           "form": "templated" if w in rowkernels.PAVA_FORMS else "generic",
+                           "ms": k_ms, "bound_ms": b_ms, "bound_by": by,
+                           "share_of_bound": b_ms / k_ms})
+        del vs
+    return max(errs), per_bucket
+
+
+def top_gather_ms(dp, scenarios=(1, 4, 128)):
+    """Device time of the stacked top's two ``index_select`` gathers (Aᵀr
+    over the (m, S) residual, A·x over the (n_pf, S) iterate) with this
+    path's indices at several S: whether their time follows the bytes they
+    move or the count of indices."""
+    top = dp.A.top
+    mv = top.mv_cols if isinstance(top.mv_cols, tuple) else tuple(top.mv_cols)
+    cases = [(top.rows.reshape(-1), top.num_rows)] + [(c.reshape(-1), dp.n_pf) for c in mv]
+    out = {"indices": [int(idx.numel()) for idx, _ in cases]}
+    for S in scenarios:
+        ms = 0.0
+        for idx, n_src in cases:
+            src = torch.randn((n_src, S), device=DEV)
+            ms += device_ms(lambda j: src.index_select(0, idx))
+        out[f"S={S}"] = {"ms": ms, "out_bytes": 4 * S * sum(out["indices"])}
+    return out
+
+
+def phase_solve_eq(ctx):
+    """``solve_equality_constrained`` (pgd/exact inners) on traffic_like x 128
+    at full width; then the first outer on the card against the CPU at S = 4
+    with one set of Lipschitz constants."""
+    from bsls_tpu_torch.solvers.eq_constrained import op_cache_key
+    from bsls_tpu_torch.utils.profiling import profile_steps
+
+    base, prob = ctx["eq_base"], ctx["eq_prob"]
+    cache, rec = {}, OuterRecords()
+    torch.cuda.reset_peak_memory_stats()
+    bt.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = bt.solve_equality_constrained(
+        prob, method="pgd", line_search="exact", eq_tol=1e-6, max_iter=EQ_BUDGET,
+        inner_iters=EQ_INNER, chunk=100, op_cache=cache, metrics=rec, device=DEV)
+    secs = time.perf_counter() - t0
+    counts = bt.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    (dp, rho_base, L_base, LC, *_), = cache.values()
+    S, n = EQ_SCENARIOS, prob.partition.n_flat
+    check(res.x.shape == (S, n) and res.eq_lam.shape == (S, prob.C.shape[0]),
+          f"solve_eq: x {res.x.shape}, eq_lam {res.eq_lam.shape}")
+    _check_simplices("solve_eq", prob, res.x)
+    cx_d, d = _eq_residual_f64(prob, res.x)
+    viol = float(np.abs(cx_d).max()) / max(1.0, float(np.abs(d).max()))
+    check(abs(viol - res.eq_violation) <= 1e-6 * viol,
+          f"solve_eq: eq_violation {res.eq_violation} against {viol} in float64 on the host")
+    # the device's fp32 objective at the end of the last inner solve (the
+    # stacked one, [A; sqrt(rho) C] x against [b; sqrt(rho)(d - lam/rho)]
+    # with that solve's rho and multipliers) against its float64 value at
+    # the returned x
+    rho_in = rec.outer[-1]["inner_rho"]
+    lam_in = res.eq_lam - rho_in * cx_d
+    A = prob.A.to_scipy().astype(np.float64).tocsr()
+    r_top = np.asarray(A @ res.x.astype(np.float64).T).T - np.asarray(prob.b, np.float64)
+    r_bot = np.sqrt(rho_in) * (cx_d + lam_in / rho_in)
+    f64 = 0.5 * ((r_top * r_top).sum(-1) + (r_bot * r_bot).sum(-1))
+    f32 = res.trace_f[:, -1].astype(np.float64)
+    rel = float(np.max(np.abs(f32 - f64) / np.maximum(1.0, np.abs(f64))))
+    check(rel <= 1e-4, f"solve_eq: device objective differs from the float64 host one by {rel:.2e}")
+    n_buckets = len(dp.buckets)
+    check(counts["proj_simplex_rows"] >= res.iterations * n_buckets,
+          f"solve_eq: proj_simplex_rows launched {counts['proj_simplex_rows']} times in "
+          f"{res.iterations} inner iterations over {n_buckets} buckets")
+    # kernel 1 against its plain version at this path's buckets, S = 128
+    err, rows = check_rows_at("proj_simplex_rows", dp, S, seed=610)
+    ctx["eq_row_errs"]["proj_simplex_rows"] = err
+    # the step of the stacked operator under the profiler: idle share and
+    # launches per inner step
+    prof = profile_steps(dp, "exact", iters=20)
+    outer = rec.outer
+    emit("solve_eq", instance=f"traffic_like(seed=0, num_blocks=10000, m=100000, num_eq=50) x {S}",
+         shape=list(prob.A.shape), nnz=int(prob.A.nnz), C=list(prob.C.shape),
+         buckets=[list(bk.mask.shape) for bk in dp.buckets], n_pf=int(dp.n_pf),
+         operator_bytes={"top": _tensor_bytes(dp.A.top), "bottom": _tensor_bytes(dp.A.bottom)},
+         rhs_bytes=_tensor_bytes(dp.b), iterate_bytes=S * int(dp.n_pf) * 4,
+         budget=EQ_BUDGET, inner_iters_max=EQ_INNER, iterations=res.iterations,
+         outer_iterations=len(outer), rho_end=res.eq_rho, rho_by_outer=[o["rho"] for o in outer],
+         eq_violation_worst=res.eq_violation, eq_violation_f64=viol,
+         violation_by_outer=[o["viol"] for o in outer], stop_reason=res.stop_reason,
+         converged=res.converged, L_base=L_base, L_C=LC, rho_base=rho_base,
+         # inner iterations over the inner solves' wall time; secs also holds
+         # the stacked prepare, the two power iterations and the host updates
+         aggregate_inner_iters_per_sec=S * res.iterations / sum(o["solve_secs"] for o in outer),
+         secs=secs, solve_secs_by_outer=[o["solve_secs"] for o in outer],
+         host_update_secs_by_outer=[o["host_secs"] for o in outer],
+         objective_max=float(np.max(res.objective)), device_vs_f64_rel=rel,
+         peak_bytes=peak, launches=counts,
+         kernel_launches_per_inner_step=counts["proj_simplex_rows"] / res.iterations,
+         device_idle_share=prof["device_idle_share"],
+         device_busy_ms_per_inner_step=prof["device_busy_ms_per_iter"],
+         wall_ms_per_inner_step=prof["wall_ms_per_iter"],
+         launches_per_inner_step=prof["launches_per_iter"],
+         largest_device_items_ms_per_step=[[k["name"][:60], k["ms_per_iter"],
+                                            k["launches_per_iter"]] for k in prof["kernels"][:8]],
+         rows_by_bucket=rows, rows_max_err=err)
+
+    # the card against the CPU, S = 4, one set of Lipschitz constants
+    prob4 = ctx["eq_prob4"]
+    kw = dict(method="pgd", line_search="exact", tol=0.0, max_iter=EQ_CROSS_ITERS,
+              inner_iters=EQ_CROSS_ITERS, chunk=50)
+    cache4 = {}
+    on_card = bt.solve_equality_constrained(prob4, op_cache=cache4, device=DEV, **kw)
+    (dp4, rb, Lb, LCb, A4, C4), = cache4.values()
+    key = op_cache_key(prob4, torch.float32, "pgd", "exact", "cpu")
+    on_cpu = bt.solve_equality_constrained(
+        prob4, op_cache={key: (_state_to(dp4, "cpu"), rb, Lb, LCb, A4, C4)}, device="cpu", **kw)
+    rel = np.abs(on_card.trace_f - on_cpu.trace_f) / np.abs(on_cpu.trace_f)
+    check(on_card.trace_f.shape == (4, EQ_CROSS_ITERS), "solve_eq: cross-check trace shape")
+    check(float(rel.max()) <= 1e-3, f"solve_eq: the first outer's trace differs on the card and "
+          f"the CPU by {rel.max():.2e} relative")
+    emit("solve_eq_cross_check", scenarios=4, iterations=EQ_CROSS_ITERS,
+         max_rel_trace_diff=float(rel.max()),
+         max_abs_x_diff=float(np.abs(on_card.x - on_cpu.x).max()),
+         eq_violation_card=on_card.eq_violation, eq_violation_cpu=on_cpu.eq_violation)
+    return counts
+
+
+def phase_solve_eq_pava(ctx, max_iter=400, inner=200):
+    """The same instance at S = 4 with the pava line search: z-space inners,
+    kernel 2 on the equality-constrained path; its step profiled."""
+    from bsls_tpu_torch.utils.profiling import profile_steps
+
+    prob4 = ctx["eq_prob4"]
+    cache, rec = {}, OuterRecords()
+    bt.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = bt.solve_equality_constrained(prob4, method="pgd", line_search="pava",
+                                        max_iter=max_iter, inner_iters=inner, chunk=100,
+                                        op_cache=cache, metrics=rec, device=DEV)
+    secs = time.perf_counter() - t0
+    counts = bt.launch_counts()
+    (dp, _, L_base, LC, *_), = cache.values()
+    _check_simplices("solve_eq_pava", prob4, res.x)
+    check(np.isfinite(res.eq_violation) and bool(np.isfinite(res.objective).all()),
+          "solve_eq_pava: non-finite result")
+    n_buckets = len(dp.buckets)
+    check(counts["pava_rows"] >= res.iterations * n_buckets,
+          f"solve_eq_pava: pava_rows launched {counts['pava_rows']} times in "
+          f"{res.iterations} inner iterations over {n_buckets} buckets")
+    err, rows = check_rows_at("pava_rows", dp, 4, seed=620)
+    # the same buckets at S = 128, where a launch is no longer only its latency
+    err128, rows128 = check_rows_at("pava_rows", dp, EQ_SCENARIOS, seed=630)
+    ctx["eq_row_errs"]["pava_rows"] = max(err, err128)
+    # the z-space step of the stacked operator under the profiler
+    prof = profile_steps(dp, "pava", iters=20)
+    gathers = top_gather_ms(dp)
+    emit("solve_eq_pava", scenarios=4, iterations=res.iterations, stop_reason=res.stop_reason,
+         eq_violation_worst=res.eq_violation, rho_end=res.eq_rho, L_z_base=L_base, L_z_C=LC,
+         objective_max=float(np.max(res.objective)), secs=secs,
+         solve_secs_by_outer=[o["solve_secs"] for o in rec.outer],
+         aggregate_inner_iters_per_sec=4 * res.iterations / sum(o["solve_secs"]
+                                                                for o in rec.outer),
+         launches=counts,
+         device_idle_share=prof["device_idle_share"],
+         device_busy_ms_per_inner_step=prof["device_busy_ms_per_iter"],
+         wall_ms_per_inner_step=prof["wall_ms_per_iter"],
+         launches_per_inner_step=prof["launches_per_iter"],
+         largest_device_items_ms_per_step=[[k["name"][:60], k["ms_per_iter"],
+                                            k["launches_per_iter"]] for k in prof["kernels"][:8]],
+         top_gathers=gathers,
+         rows_by_bucket=rows, rows_by_bucket_s128=rows128, rows_max_err=max(err, err128))
+    return counts
+
+
+def phase_solve_eq_traffic(target=1e-6):
+    """The preset ``traffic`` (grid network, lbfgs inners, S = 1) through
+    ``solve`` with ``refine_tol``: the certified finisher against the float64
+    oracle."""
+    from bsls_tpu_torch.solvers import base as TB
+    from bsls_tpu_torch.solvers.eq_constrained import eq_dual_bound, eq_multiplier_polish
+    from bsls_tpu_torch.utils.config import load_config
+
+    cfg = load_config("traffic")
+    prob = bt.synthetic.make_config(cfg.config, seed=cfg.seed)
+    cg_secs, real_cg = [0.0], TB._polish_cg
+
+    def timed_cg(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_cg(*a)
+        torch.cuda.synchronize()
+        cg_secs[0] += time.perf_counter() - t0
+        return out
+
+    bt.reset_launch_counts()
+    TB._polish_cg = timed_cg
+    t0 = time.perf_counter()
+    try:
+        res = bt.solve(prob, method=cfg.method, line_search=cfg.line_search, tol=cfg.tol,
+                       max_iter=cfg.max_iter, chunk=cfg.chunk, refine_tol=target, device=DEV)
+    finally:
+        TB._polish_cg = real_cg
+    secs = time.perf_counter() - t0
+    counts = bt.launch_counts()
+    t1 = time.perf_counter()
+    orc = bt.oracle_solve_eq(prob)
+    oracle_secs = time.perf_counter() - t1
+    f = float(res.objective)
+    _check_simplices("solve_eq_traffic", prob, res.x)
+    check(abs(f - orc.objective) <= 1e-9, f"solve_eq_traffic: objective {f!r} against the "
+          f"oracle's {orc.objective!r}")
+    check(res.eq_violation <= 1e-6, f"solve_eq_traffic: violation {res.eq_violation:.2e}")
+    check(res.refine_fw_gap is not None and res.refine_fw_gap <= target,
+          f"solve_eq_traffic: certificate {res.refine_fw_gap}")
+    # the Lagrangian dual bound recomputed on the host from the returned x
+    # and multipliers: the certificate is the tightest bound the finisher
+    # found (these multipliers, or their face refit), and both bound the
+    # gap to the oracle (relative to max(1, |f|), float64 rounding aside)
+    bound = eq_dual_bound(prob, res.x, res.eq_lam)
+    bound_fit = eq_dual_bound(prob, res.x, eq_multiplier_polish(prob, res.x))
+    true_gap = (f - orc.objective) / max(1.0, abs(f))
+    check(res.refine_fw_gap <= bound * (1 + 1e-6) + 1e-12,
+          f"solve_eq_traffic: certificate {res.refine_fw_gap:.3e} above the recomputed bound "
+          f"{bound:.3e}")
+    check(true_gap <= min(bound, res.refine_fw_gap) + 1e-12,
+          f"solve_eq_traffic: the gap to the oracle {true_gap:.3e} exceeds the bound "
+          f"{bound:.3e} or the certificate {res.refine_fw_gap:.3e}")
+    check(counts["proj_simplex_rows"] >= res.iterations,
+          f"solve_eq_traffic: proj_simplex_rows launched {counts['proj_simplex_rows']} times")
+    emit("solve_eq_traffic", preset="traffic", method=cfg.method, shape=list(prob.A.shape),
+         C=list(prob.C.shape), iterations=res.iterations, stop_reason=res.stop_reason,
+         objective=f, oracle_objective=orc.objective, abs_diff_to_oracle=abs(f - orc.objective),
+         oracle_eq_violation=orc.eq_violation, oracle_secs=oracle_secs,
+         eq_violation=res.eq_violation, rho_end=res.eq_rho, refine_fw_gap=res.refine_fw_gap,
+         recomputed_bound=bound, recomputed_bound_refit=bound_fit, true_rel_gap=true_gap, refine_secs=res.refine_secs,
+         refine_device_cg_secs=cg_secs[0], refine_host_secs=res.refine_secs - cg_secs[0],
+         solve_secs=secs - res.refine_secs, secs=secs, launches=counts)
+    return counts
+
+
+def chunk0_child():
+    """``--chunk0-child``: a fresh process that solves medium x 128 (pgd,
+    exact, three chunks of 100) and prints its chunk wall times.  The kernel
+    library is already built; what chunk 0 may carry beyond chunk 1 is the
+    library's load and every first launch."""
+    base = bt.synthetic.medium_sparse(seed=0)
+    dp = bt.prepare(bt.synthetic.with_scenarios(base, SCENARIOS, seed=1), device=DEV)
+    res = bt.solve(dp, method="pgd", line_search="exact", tol=0.0, max_iter=300, chunk=100)
+    print(json.dumps({"chunk_secs": [float(t) for t in res.chunk_times]}), flush=True)
+
+
+def phase_chunk0():
+    """Chunk 0 against chunk 1 of the exact path in a fresh process: the
+    library's load and the first launches come before the clock."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"), "--chunk0-child"],
+                          capture_output=True, text=True, cwd=here, timeout=600)
+    check(proc.returncode == 0, f"chunk0: the child failed:\n{proc.stderr[-2000:]}")
+    secs = json.loads(proc.stdout.strip().splitlines()[-1])["chunk_secs"]
+    ratio = secs[0] / secs[1]
+    emit("chunk0", scenarios=SCENARIOS, chunk_secs=secs, chunk0_secs=secs[0],
+         chunk1_secs=secs[1], ratio=ratio)
+    check(ratio <= 3.0, f"chunk0: chunk 0 took {ratio:.2f} x chunk 1 after the warm-up")
+
 
 def main():
     ap = argparse.ArgumentParser()
@@ -1250,7 +1602,12 @@ def main():
     ap.add_argument("--stop-after", choices=["kernels"], default=None,
                     help="stop (exit code 3, no result line) after this phase: a short first "
                          "run for a new kernel")
+    ap.add_argument("--chunk0-child", action="store_true",
+                    help="the fresh process of the chunk0 phase (prints its chunk times only)")
     args = ap.parse_args()
+    if args.chunk0_child:
+        chunk0_child()
+        return
     t_start = time.perf_counter()
 
     phase_device()
@@ -1272,6 +1629,14 @@ def main():
     for S in (1, 4):
         ctx["banded_prob"][S], ctx["banded"][S], ctx["banded_info"][S] = prepare_banded(
             banded_base, S)
+    t0 = time.perf_counter()
+    ctx["eq_base"], ctx["eq_prob"] = eq_instance(EQ_SCENARIOS)
+    ctx["eq_prob4"] = bt.synthetic.with_scenarios(ctx["eq_base"], 4, seed=1)
+    ctx["eq_row_errs"] = {}
+    emit("instance_eq", name=ctx["eq_prob"].name, blocks=int(ctx["eq_base"].partition.num_blocks),
+         shape=list(ctx["eq_base"].A.shape), nnz=int(ctx["eq_base"].A.nnz),
+         C=list(ctx["eq_base"].C.shape), scenarios=EQ_SCENARIOS,
+         gen_secs=round(time.perf_counter() - t0, 2))
     ctx["tiny_prob"] = bt.synthetic.tiny_dense(seed=0)
     ctx["tiny"] = bt.prepare(ctx["tiny_prob"], device=DEV)
     ctx["pava_inputs"] = capture_pava_inputs(dp)
@@ -1299,6 +1664,14 @@ def main():
     new_paths.append(phase_refine(prob, dp))
     new_paths.append(phase_refine_certified(base))
     new_paths.append(phase_solve_banded_families(ctx))
+    # the equality-constrained path: kernel 1 in every inner solve, kernel 2
+    # in the z-space ones
+    new_paths.append(phase_solve_eq(ctx))
+    new_paths.append(phase_solve_eq_pava(ctx))
+    new_paths.append(phase_solve_eq_traffic())
+    for name, err in ctx["eq_row_errs"].items():
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+    phase_chunk0()
     for counts in new_paths:
         for name in report:
             report[name]["launches"] += counts.get(name, 0)

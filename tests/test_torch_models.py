@@ -93,10 +93,12 @@ def test_prepare_unported_raise():
         TL.prepare(small_instance(tsyn, "dense"), layout="banded", device="cpu")
     with pytest.raises(ValueError, match="unknown layout"):
         TL.prepare(small_instance(tsyn, "ell"), layout="paged", device="cpu")
-    with pytest.raises(NotImplementedError, match="equality"):
+    # an equality-constrained problem goes to solve() (the augmented-
+    # Lagrangian loop prepares its stacked operator); the grid instance of
+    # config "traffic" is ported (tests/test_torch_traffic.py)
+    with pytest.raises(ValueError, match=r"solve\(\)"):
         TL.prepare(GENERATORS["traffic_like"](tsyn), device="cpu")
-    with pytest.raises(NotImplementedError, match="traffic"):
-        tsyn.make_config("traffic")
+    assert tsyn.make_config("traffic", nx=4, ny=4, num_od=6, num_eq=2).C.shape[0] == 2
 
 
 def test_npz_roundtrip_and_cross_load(tmp_path):

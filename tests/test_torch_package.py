@@ -13,6 +13,10 @@ import pytest
 from torch_port_helpers import KERNELS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the float64 host work of a CLI child (oracles, the AL multiplier update) in
+# one BLAS thread: beside the other test workers a multi-threaded BLAS spins
+# against them and runs many times slower
+ONE_BLAS_THREAD = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 PKG = os.path.join(REPO, "bsls_tpu_torch")
 
 
@@ -188,11 +192,29 @@ def test_options_of_the_refine_and_family_slice_run(name):
 
 
 def test_equality_constrained_problem_raises():
+    """prepare() of a Problem with C raises and points to solve(); solve()
+    routes the same problem to the augmented-Lagrangian loop."""
     import bsls_tpu_torch as bt
+    from bsls_tpu_torch.solvers import eq_constrained
 
     prob = bt.synthetic.traffic_like(num_blocks=10, m=40, num_eq=3)
-    with pytest.raises(NotImplementedError, match="equality"):
-        bt.solve(prob, device="cpu")
+    with pytest.raises(ValueError, match=r"solve\(\)"):
+        bt.prepare(prob, device="cpu")
+    seen = []
+    real = eq_constrained.solve_equality_constrained
+
+    def spy(problem, **kw):
+        seen.append(kw)
+        return real(problem, **kw)
+
+    eq_constrained.solve_equality_constrained = spy
+    try:
+        res = bt.solve(prob, device="cpu", max_iter=100, chunk=50)
+    finally:
+        eq_constrained.solve_equality_constrained = real
+    assert len(seen) == 1 and seen[0]["device"] == "cpu" and seen[0]["max_iter"] == 100
+    assert res.eq_violation is not None and res.eq_lam.shape == (3,) and res.eq_rho > 0
+    assert res.iterations == 100
     with pytest.raises(ValueError):
         bt.solve(bt.synthetic.tiny_dense(num_blocks=4, dim=3, m=10), device="cpu",
                  line_search="armijo")
@@ -248,7 +270,77 @@ def test_cli_default_device_fails_without_a_card():
         pytest.skip("a CUDA device is present")
     proc = _cli("--config", "tiny")
     assert proc.returncode != 0 and "cuda" in proc.stderr
-    proc = _cli("--device", "cpu", "--config", "traffic")
-    assert proc.returncode != 0 and "not ported" in proc.stderr
+    proc = _cli("--config", "traffic")
+    assert proc.returncode != 0 and "cuda" in proc.stderr
     proc = _cli("--config", "medium-banded")
     assert proc.returncode != 0 and "cuda" in proc.stderr
+
+
+def test_cli_oracle_with_scenarios_gives_a_gap_per_scenario(tmp_path):
+    """Repaired fault: --oracle with --scenarios > 1 crashed.  Each scenario
+    now gets its own f*, and rel_gap_vs_oracle is the worst scenario's gap
+    against its own f*."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "bsls_tpu_torch", "--config", "tiny", "--scenarios", "4",
+         "--oracle", "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True,
+        env={**os.environ, "BSLS_CACHE_DIR": str(tmp_path), **ONE_BLAS_THREAD})
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    f, fs = np.asarray(out["objective"]), np.asarray(out["oracle_objective"])
+    assert f.shape == fs.shape == (4,) and np.isfinite(out["rel_gap_vs_oracle"])
+    assert out["rel_gap_vs_oracle"] == pytest.approx(
+        float(np.max((f - fs) / np.maximum(1.0, np.abs(fs)))), rel=1e-9, abs=1e-15)
+    assert 0.0 <= out["rel_gap_vs_oracle"] <= 1e-4
+    # the four scenarios are four instances: four cached f*
+    assert len(os.listdir(tmp_path)) == 4
+
+
+def test_kernel_library_load_and_first_launch_come_before_the_clock(monkeypatch):
+    """Repaired fault: on a card the first chunk booked the kernel library's
+    load (and nvcc when stale) and the first launches.  The warm-up runs
+    before the chunk clock; on a CUDA device it loads the library first and
+    raises when the load fails (no fallback)."""
+    import time
+
+    import torch
+
+    import bsls_tpu_torch as bt
+    from bsls_tpu_torch.ops import cudalib
+    from bsls_tpu_torch.solvers import base as TB
+
+    events = []
+
+    class Clock:
+        def perf_counter(self):
+            events.append("clock")
+            return time.perf_counter()
+
+    real_warm = TB._warm_up
+
+    def warm(device, first_launch):
+        events.append("warm")
+        return real_warm(device, first_launch)
+
+    monkeypatch.setattr(TB, "time", Clock())
+    monkeypatch.setattr(TB, "_warm_up", warm)
+    prob = bt.synthetic.tiny_dense(num_blocks=4, dim=3, m=10)
+    res = bt.solve(prob, device="cpu", tol=0.0, max_iter=20, chunk=10)
+    assert events[0] == "warm" and events.count("warm") == 1
+    assert events.count("clock") == 1 + len(res.chunk_times)
+    monkeypatch.setattr(TB, "time", time)
+
+    # the CUDA branch: load, then the first launch, then a synchronize
+    calls = []
+    monkeypatch.setattr(cudalib, "load", lambda: calls.append("load"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: calls.append("sync"))
+    real_warm(torch.device("cuda"), lambda: calls.append("launch"))
+    assert calls == ["load", "launch", "sync"]
+
+    def broken():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(cudalib, "load", broken)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        real_warm(torch.device("cuda"), lambda: calls.append("launch"))
+    assert calls.count("launch") == 1

@@ -26,23 +26,31 @@ def _flatten_ell(d, stem, A):
     d[f"{stem}.rt_zeros"] = int(A.rt_zeros)
 
 
+def _flatten_matrix(d, stem, A):
+    if hasattr(A, "data"):
+        d[f"{stem}.data"] = _arr(A.data)
+    elif hasattr(A, "split"):  # the stacked operator of the eq path
+        _flatten_matrix(d, f"{stem}.top", A.top)
+        _flatten_matrix(d, f"{stem}.bottom", A.bottom)
+        d[f"{stem}.bottom_scale"] = _arr(A.bottom_scale)
+        d[f"{stem}.split"] = int(A.split)
+    elif hasattr(A, "bands"):
+        for i, band in enumerate(A.bands):
+            d[f"{stem}.bands[{i}]"] = _arr(band)
+        d[f"{stem}.back"], d[f"{stem}.wpages"] = int(A.back), int(A.wpages)
+        d[f"{stem}.seg_lens"] = tuple(int(v) for v in A.seg_lens)
+        d[f"{stem}.pages"] = int(A.pages) if A.pages else int(A.bands[0].shape[0])
+        if A.resid is not None:
+            _flatten_ell(d, f"{stem}.resid", A.resid)
+    else:
+        _flatten_ell(d, stem, A)
+
+
 def flatten_device_problem(dp) -> dict:
     """A DeviceProblem of either package -> {field name: numpy array}, under
     the key names that bsls_tpu_torch.convert documents."""
     d = {}
-    A = dp.A
-    if hasattr(A, "data"):
-        d["A.data"] = _arr(A.data)
-    elif hasattr(A, "bands"):
-        for i, band in enumerate(A.bands):
-            d[f"A.bands[{i}]"] = _arr(band)
-        d["A.back"], d["A.wpages"] = int(A.back), int(A.wpages)
-        d["A.seg_lens"] = tuple(int(v) for v in A.seg_lens)
-        d["A.pages"] = int(A.pages) if A.pages else int(A.bands[0].shape[0])
-        if A.resid is not None:
-            _flatten_ell(d, "A.resid", A.resid)
-    else:
-        _flatten_ell(d, "A", A)
+    _flatten_matrix(d, "A", dp.A)
     d["b"] = _arr(dp.b)
     d["perm"] = _arr(dp.perm)
     d["row_perm"] = None if dp.row_perm is None else _arr(dp.row_perm)
