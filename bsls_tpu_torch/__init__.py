@@ -10,11 +10,13 @@ eg, frank_wolfe, afw) on the gather and the banded layout, ``certify=K``,
 ``refine=K`` and ``refine_tol=``, and the opt-in fused chunk
 (``BSLS_MEGA=1``), and the equality-constrained path (``solve`` of a
 ``Problem`` with ``C``: the augmented-Lagrangian loop on the stacked operator
-[A; sqrt(rho) C], its float64 host layer and ``oracle_solve_eq``), with CUDA
-kernels (``csrc/``) for the block-simplex projection, the bounded isotonic
-regression, the two per-page band contractions and the fused chunk of PGD
-iterations.  Entry points take ``device=`` and default to ``"cuda"``; they
-run on the CPU only when asked to.
+[A; sqrt(rho) C], its float64 host layer and ``oracle_solve_eq``), serving
+(``Endpoint``, ``BatchQueue``), checkpoint/resume, the ``.mat`` loader and the
+CLI, all on one device, with CUDA kernels (``csrc/``) for the block-simplex
+projection, the bounded isotonic regression, the two per-page band
+contractions and the fused chunk of PGD iterations.  Only the mesh
+(distribution) is not ported.  Entry points take ``device=`` and default to
+``"cuda"``; they run on the CPU only when asked to.
 
 Precision: fp32 on the device with float64 anchors on the host.  Dense and
 batched contractions stay at full fp32 — reduced-precision matrix passes cap
@@ -39,6 +41,7 @@ from .models import (  # noqa: E402
 from .ops.layout import DeviceProblem, prepare  # noqa: E402
 from .ops.cudalib import launch_counts, reset_launch_counts  # noqa: E402
 from .solvers import SolveResult, solve, solve_equality_constrained  # noqa: E402
+from .serving import BatchQueue, Endpoint  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -56,6 +59,8 @@ __all__ = [
     "SolveResult",
     "solve",
     "solve_equality_constrained",
+    "Endpoint",
+    "BatchQueue",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -7,7 +7,9 @@
     python -m bsls_tpu_torch --config tiny --method afw --refine-tol 1e-8 --device cpu
     python -m bsls_tpu_torch --preset traffic --refine-tol 1e-6
     python -m bsls_tpu_torch --config tiny --scenarios 4 --oracle --device cpu
-    python -m bsls_tpu_torch --config instance.npz --oracle
+    python -m bsls_tpu_torch --config instance.npz --oracle      # or .mat (v5-v7.3)
+    python -m bsls_tpu_torch --config medium --checkpoint ck.npz --checkpoint-every 5 [--resume]
+    python -m bsls_tpu_torch --config tiny --profile-dir prof/ --device cpu
 
 Emits one JSON result line: iterations/s, objective, FW gap, the torch
 device, ``refine_secs``/``refine_fw_gap`` after a polish, ``eq_violation``
@@ -15,9 +17,13 @@ for an equality-constrained instance (``traffic``; it runs the
 augmented-Lagrangian loop on the gather layout), and objective-vs-oracle
 with time-to-1e-6-relative-gap when --oracle supplies f*: one f* per
 scenario, and ``rel_gap_vs_oracle`` is the worst scenario's gap against its
-own f*.  Every solver family of the reference runs (``--method``).  Flags of
-parts that are not ported yet (mesh, checkpoints, profiling) do not exist
-here and are rejected by the parser.
+own f*.  Every solver family of the reference runs (``--method``).
+``--checkpoint``/``--checkpoint-every``/``--resume`` checkpoint the solver
+state every K chunks (outer iterations on an equality-constrained instance)
+and resume from the newest checkpoint; ``--profile-dir`` writes a
+``torch.profiler`` trace of the solve.  Only the mesh is not ported: its
+flags (``--mesh-block``, ``--mesh-scenario``) do not exist here and are
+rejected by the parser.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ def build_parser():
     p = argparse.ArgumentParser(prog="bsls_tpu_torch")
     p.add_argument("--preset", default=None, help="named preset from utils.config")
     p.add_argument("--config", default=None,
-                   help="tiny|medium|medium_banded|traffic|traffic_random|large|path.npz|path.json")
+                   help="tiny|medium|medium_banded|traffic|traffic_random|large|path.npz|"
+                        "path.mat|path.json")
     p.add_argument("--method", default=None,
                    help="pgd|apgd|fista|lbfgs|eg|mirror_descent|frank_wolfe|fw|afw|pairwise|"
                         "pairwise_fw")
@@ -55,7 +62,14 @@ def build_parser():
                         "gap certifies this relative gap (--refine caps rounds); the "
                         "certificate is reported as refine_fw_gap")
     p.add_argument("--oracle", action="store_true", default=None)
+    p.add_argument("--profile-dir", dest="profile_dir", default=None,
+                   help="write a torch.profiler trace of the solve into this directory")
     p.add_argument("--metrics", dest="metrics_path", default=None)
+    p.add_argument("--checkpoint", dest="checkpoint_path", default=None)
+    p.add_argument("--checkpoint-every", dest="checkpoint_every", type=int, default=None,
+                   help="chunks (outer iterations of an eq instance) between checkpoints")
+    p.add_argument("--resume", action="store_true", default=None,
+                   help="continue from the newest checkpoint at --checkpoint")
     p.add_argument("--device", default=None, help="cuda (default) | cpu")
     return p
 
@@ -72,11 +86,13 @@ def main(argv=None):
     from bsls_tpu_torch.solvers.base import DEFAULT_REFINE_ROUNDS, refine_polish
     from bsls_tpu_torch.utils.config import load_config
     from bsls_tpu_torch.utils.metrics import MetricsWriter
+    from bsls_tpu_torch.utils.profiling import trace
 
     overrides = {
         k: getattr(args, k)
         for k in ("config method line_search scenarios layout tol max_iter chunk seed "
-                  "refine refine_tol oracle metrics_path device").split()
+                  "refine refine_tol oracle profile_dir metrics_path checkpoint_path "
+                  "checkpoint_every resume device").split()
         if getattr(args, k) is not None
     }
     cfg = load_config(args.preset or args.config or "tiny", **overrides)
@@ -116,24 +132,27 @@ def main(argv=None):
         mw.log("config", **json.loads(cfg.to_json()))
         kw = dict(method=cfg.method, line_search=cfg.line_search, tol=cfg.tol,
                   max_iter=cfg.max_iter, chunk=cfg.chunk, step_size=cfg.step_size,
-                  metrics=mw if cfg.metrics_path else None)
+                  metrics=mw if cfg.metrics_path else None,
+                  checkpoint_path=cfg.checkpoint_path, checkpoint_every=cfg.checkpoint_every,
+                  resume=cfg.resume)
         rounds = cfg.refine or (DEFAULT_REFINE_ROUNDS if cfg.refine_tol is not None else 0)
-        if eq:
-            # the augmented-Lagrangian loop prepares its stacked operator
-            # itself; refine/refine_tol are its finishing outers
-            dp = None
-            res = bsls.solve(prob, dtype=getattr(torch, cfg.dtype), refine=cfg.refine,
-                             refine_tol=cfg.refine_tol, device=dev, **kw)
-        else:
-            dp = bsls.prepare(prob, dtype=getattr(torch, cfg.dtype),
-                              equilibrate=cfg.equilibrate, layout=cfg.layout, device=dev)
-            res = bsls.solve(dp, **kw)
-            # the polish of solve(refine=...) on the prepared layout (solve
-            # takes the refine options only with the host Problem, which it
-            # prepares itself under layout="auto")
-            if rounds:
-                res = refine_polish(prob, dp, res, rounds=rounds,
-                                    target_rel_gap=cfg.refine_tol)
+        with trace(cfg.profile_dir):
+            if eq:
+                # the augmented-Lagrangian loop prepares its stacked operator
+                # itself; refine/refine_tol are its finishing outers
+                dp = None
+                res = bsls.solve(prob, dtype=getattr(torch, cfg.dtype), refine=cfg.refine,
+                                 refine_tol=cfg.refine_tol, device=dev, **kw)
+            else:
+                dp = bsls.prepare(prob, dtype=getattr(torch, cfg.dtype),
+                                  equilibrate=cfg.equilibrate, layout=cfg.layout, device=dev)
+                res = bsls.solve(dp, **kw)
+                # the polish of solve(refine=...) on the prepared layout (solve
+                # takes the refine options only with the host Problem, which it
+                # prepares itself under layout="auto")
+                if rounds:
+                    res = refine_polish(prob, dp, res, rounds=rounds,
+                                        target_rel_gap=cfg.refine_tol)
 
         ips = res.steady_iters_per_sec()
         out = {

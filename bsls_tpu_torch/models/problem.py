@@ -6,8 +6,9 @@ Host-side (numpy/scipy) representation.  The device-side prepared form
 A copy of the host model of ``bsls_tpu/models/problem.py`` (numpy only; the
 two packages share no module): scipy-sparse or dense ``A``, ``b`` of shape
 (m,) or (S, m), a ``block_sizes`` vector, optional equality constraints, and
-the ``.npz`` instance format, and the stacked/scaled operators of the
-equality-constrained path.  The MATLAB ``.mat`` loader is not ported yet.
+the ``.npz`` instance format, the MATLAB ``.mat`` loader (v5-v7 through
+scipy, v7.3 through h5py, which only that format needs), and the
+stacked/scaled operators of the equality-constrained path.
 """
 from __future__ import annotations
 
@@ -209,6 +210,40 @@ class ScaledMatrix:
                 else self.scale * np.asarray(M))
 
 
+def _load_mat73(path: str) -> dict:
+    """Read a MATLAB v7.3 (HDF5) .mat: scipy.io.loadmat raises
+    NotImplementedError on these.  MATLAB stores dense arrays transposed
+    (column-major) and sparse matrices as a group of CSC components
+    (data/ir/jc) whose row count lives in the MATLAB_sparse attribute."""
+    try:
+        import h5py
+    except ImportError as exc:
+        raise ImportError(
+            f"{path} is a MATLAB v7.3 (HDF5) file: reading it needs h5py, which is "
+            "not installed") from exc
+
+    def read(node, is_matrix):
+        if isinstance(node, h5py.Group):  # sparse CSC components
+            # straight CSC -> EllMatrix: MATLAB sparse storage is canonical
+            # (sorted, deduplicated), which from_csc requires
+            data = np.asarray(node["data"]).ravel()
+            ir = np.asarray(node["ir"]).ravel()
+            jc = np.asarray(node["jc"]).ravel().astype(np.int64)
+            nrows = int(node.attrs["MATLAB_sparse"])
+            return EllMatrix.from_csc(jc, ir, data, nrows)
+        arr = np.asarray(node)
+        if is_matrix:  # matrices stay 2-D even with a singleton dim
+            return arr.T if arr.ndim == 2 else arr.reshape(1, -1)
+        return arr.ravel()
+
+    out = {}
+    with h5py.File(path, "r") as f:
+        for key in ("A", "b", "block_sizes", "C", "d", "x_true"):
+            if key in f:
+                out[key] = read(f[key], is_matrix=key in ("A", "C"))
+    return out
+
+
 @dataclass(frozen=True)
 class Problem:
     """Block-simplex-constrained least squares instance.
@@ -314,11 +349,33 @@ class Problem:
 
     @staticmethod
     def load(path: str) -> "Problem":
-        """Load a .npz instance (the framework's native format)."""
+        """Load a .npz instance (the framework's native format) or a MATLAB
+        .mat with A/b/block_sizes keys (and optionally C, d, x_true): classic
+        (v5-v7) files through scipy, HDF5-based (v7.3) ones through h5py."""
         if str(path).endswith(".mat"):
-            raise NotImplementedError(
-                "MATLAB .mat instances are not ported yet (later slice: "
-                "harness); convert to .npz with bsls_tpu's Problem.save_npz")
+            from scipy.io import loadmat
+
+            try:
+                raw = loadmat(path)
+            except (NotImplementedError, ValueError):
+                # MATLAB v7.3 = HDF5 container (scipy raises
+                # NotImplementedError with the MATLAB userblock header,
+                # ValueError on a bare HDF5 file).  Only those go to h5py: a
+                # corrupt classic .mat surfaces scipy's error.
+                with open(path, "rb") as fh:
+                    head = fh.read(19)
+                if not (head.startswith(b"MATLAB 7.3") or head.startswith(b"\x89HDF")):
+                    raise
+                raw = _load_mat73(path)
+            A = raw["A"]
+            b = np.asarray(raw["b"]).ravel()
+            sizes = np.asarray(raw["block_sizes"]).ravel()
+            C = raw.get("C")
+            d = raw.get("d")
+            d = None if d is None else np.asarray(d).ravel()
+            x_true = raw.get("x_true")
+            x_true = None if x_true is None else np.asarray(x_true).ravel()
+            return Problem.from_arrays(A, b, sizes, C=C, d=d, x_true=x_true, name=str(path))
         raw = np.load(path, allow_pickle=False)
         if "A_dense" in raw:
             A = DenseMatrix(raw["A_dense"])

@@ -33,9 +33,9 @@ augmented-Lagrangian loop of ``solvers/eq_constrained.py``, whose inner
 solves are this chunk runner on the stacked operator [A; sqrt(rho) C].
 
 Counterpart of ``bsls_tpu/solvers/base.py`` for all six solver families
-(``_get_solver``), certify, refine and the equality-constrained path on one
-device.  The mesh-sharded solve and checkpoint/resume are not ported yet and
-raise ``NotImplementedError``; none is silently ignored.
+(``_get_solver``), certify, refine, checkpoint/resume and the
+equality-constrained path on one device.  Only the mesh-sharded solve is not
+ported yet: ``mesh=`` and ``shard_rows=`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -53,6 +53,7 @@ from ..ops import layout as L
 from ..ops import ztransform as Z
 from ..ops.projection import proj_blocks
 from ..ops.simplex import block_min
+from ..utils.checkpoint import latest_checkpoint, load_state, save_state
 
 PAIRWISE = ("afw", "pairwise", "pairwise_fw")
 
@@ -296,16 +297,10 @@ def _get_solver(method: str):
 
 def _reject_unported(**given):
     """Options of ``bsls_tpu.solve`` whose part is not ported yet."""
-    later = {
-        "mesh": "distribution",
-        "shard_rows": "distribution",
-        "checkpoint_path": "checkpoint/CLI rest",
-        "resume": "checkpoint/CLI rest",
-    }
     for name, value in given.items():
         if value:
             raise NotImplementedError(
-                f"solve({name}=...) is not ported yet (later slice: {later[name]})")
+                f"solve({name}=...) is not ported yet (later slice: distribution)")
 
 
 def _warm_up(device: torch.device, first_launch: Callable[[], Any]) -> None:
@@ -613,6 +608,8 @@ def solve(
     verbose: bool = False,
     x0: Optional[np.ndarray] = None,
     checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 0,
+    checkpoint_keep: int = 0,
     resume: bool = False,
     metrics=None,
     stop_rule: str = "auto",
@@ -647,15 +644,23 @@ def solve(
     given alone, the cap is ``DEFAULT_REFINE_ROUNDS``), and the certificate
     is returned as ``res.refine_fw_gap``.
 
+    ``checkpoint_path`` with ``checkpoint_every=K`` saves the solver state
+    (``utils/checkpoint.py``) after every K-th chunk's readback and once at
+    the end; ``checkpoint_keep=N`` keeps the newest N iteration-stamped
+    files.  ``resume=True`` loads the latest checkpoint into the freshly
+    initialised state and continues from its iteration; a checkpoint at or
+    past ``max_iter`` comes back as it is.  The stop rule's history is not
+    checkpointed.
+
     A host ``Problem`` with equality constraints (``C``, ``d``) runs the
     augmented-Lagrangian loop (``solve_equality_constrained``): ``max_iter``
     is then its total inner budget, ``refine``/``refine_tol`` its float64
-    finishing outers and certified polish, and the result carries
-    ``eq_violation``, ``eq_lam`` and ``eq_rho``.  ``space``, ``callback``,
-    ``certify``, ``lipschitz`` and a ``stop_rule`` other than "auto" are
-    rejected there.
+    finishing outers and certified polish, the checkpoint options act per
+    outer iteration, and the result carries ``eq_violation``, ``eq_lam`` and
+    ``eq_rho``.  ``space``, ``callback``, ``certify``, ``lipschitz`` and a
+    ``stop_rule`` other than "auto" are rejected there.
     """
-    _reject_unported(mesh=mesh is not None, checkpoint_path=checkpoint_path, resume=resume)
+    _reject_unported(mesh=mesh is not None)
     if isinstance(problem, Problem) and problem.C is not None:
         from .eq_constrained import solve_equality_constrained
 
@@ -676,7 +681,9 @@ def solve(
             problem, method=method, tol=tol, max_iter=max_iter, chunk=chunk,
             line_search=line_search, step_size=step_size, dtype=dtype,
             lbfgs_mem=lbfgs_mem, x0=x0, refine=refine, refine_tol=refine_tol,
-            metrics=metrics, device=device,
+            metrics=metrics, checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every, checkpoint_keep=checkpoint_keep,
+            resume=resume, device=device,
         )
     if refine_tol is not None and refine == 0:
         # certified mode with no explicit round cap: default the cap instead
@@ -738,7 +745,13 @@ def solve(
         return st, (tf, tg)
 
     run = mega_run if mega_run is not None else run_chunk
-    if max_iter > 0:
+    it = 0
+    if resume and checkpoint_path:
+        ck = latest_checkpoint(checkpoint_path)
+        if ck:
+            state, meta = load_state(ck, state)
+            it = int(meta.get("iteration", 0))
+    if it < max_iter:
         _warm_up(dp.device, (lambda: mega_run(state)) if mega_run is not None
                  else (lambda: solver.step(dp, state, L_est, opts)))
 
@@ -748,13 +761,14 @@ def solve(
     traces_f, traces_g, ctimes, citers = [], [], [], []
     converged = False
     stopper = StopTracker(tol, stop_rule)
-    it = 0
+    chunks_done = 0
     if dp.device.type == "cuda":
         torch.cuda.synchronize(dp.device)
     t0 = time.perf_counter()
     while it < max_iter:
         state, (tf, tg) = run(state)
         it += chunk
+        chunks_done += 1
         traces_f.append(tf)
         traces_g.append(tg)
         citers.append(it)
@@ -770,6 +784,8 @@ def solve(
                 "chunk", iteration=it, f=f_last.tolist(), relgap=rel.tolist(),
                 secs=ctimes[-1],
             )
+        if checkpoint_path and checkpoint_every and chunks_done % checkpoint_every == 0:
+            save_state(checkpoint_path, state, meta={"iteration": it}, keep=checkpoint_keep)
         if callback is not None:
             callback(it, state)
         if verbose:
@@ -777,6 +793,8 @@ def solve(
         if stopper.update(f_last, rel):
             converged = True
             break
+    if checkpoint_path and checkpoint_every:
+        save_state(checkpoint_path, state, meta={"iteration": it}, keep=checkpoint_keep)
 
     if certify and method not in PAIRWISE:
         # certificate polish: a short pairwise-FW phase from the current
@@ -799,7 +817,7 @@ def solve(
     if traces_f:
         trace_f = torch.cat(traces_f, dim=1).cpu().numpy()
         trace_gap = torch.cat(traces_g, dim=1).cpu().numpy()
-    else:  # max_iter <= 0: nothing ran
+    else:  # max_iter <= 0, or resumed at or past it: nothing ran
         trace_f = trace_gap = np.zeros((state.f.shape[0], 0), np.float32)
     # one final exact projection: guarantees feasibility of the returned x
     # regardless of method (the z-space path can leave O(eps) negative

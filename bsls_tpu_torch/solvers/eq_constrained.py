@@ -30,9 +30,9 @@ The host halves (``prox_bpp_polish``, ``_face_pcg``, ``eq_multiplier_polish``,
 of ``bsls_tpu/solvers/eq_constrained.py``.  One intended deviation:
 ``_face_pcg``'s ``_ggt_factors`` raises, naming the block, where a block has
 no positive weight (the reference clamps it at 1e-300).  The device half,
-``solve_equality_constrained``, runs on one device; its mesh branches and
-its outer-granularity checkpoint raise ``NotImplementedError`` naming the
-slice that brings them.
+``solve_equality_constrained``, runs on one device and checkpoints at outer
+granularity; its mesh branches raise ``NotImplementedError`` naming the slice
+that brings them.
 """
 from __future__ import annotations
 
@@ -45,6 +45,7 @@ import torch
 
 from ..models.problem import Problem, ScaledMatrix, VStackMatrix
 from ..ops import layout as L
+from ..utils.checkpoint import latest_checkpoint, load_state, save_state
 
 __all__ = ["solve_equality_constrained", "solve_eq_sensitivity",
            "prox_bpp_polish", "eq_dual_bound", "eq_multiplier_polish"]
@@ -99,6 +100,8 @@ def solve_equality_constrained(
     lbfgs_mem: int = 8,
     metrics=None,
     checkpoint_path=None,
+    checkpoint_every: int = 0,
+    checkpoint_keep: int = 0,
     resume: bool = False,
     refine: int = 0,
     refine_tol: Optional[float] = None,
@@ -142,16 +145,23 @@ def solve_equality_constrained(
     ``eq_multiplier_polish`` where the walk does not certify) and reports
     the Lagrangian dual bound as ``refine_fw_gap``.
 
-    ``mesh``/``shard_rows`` and ``checkpoint_path``/``resume`` raise
-    ``NotImplementedError``: their slices are not ported yet.
+    ``checkpoint_path``/``checkpoint_every``/``checkpoint_keep``/``resume``
+    checkpoint at OUTER granularity (``checkpoint_every`` counts outer
+    iterations): the state is ``{"lam", "x"}`` in float64 with the outer
+    index, rho, the violation and the inner iterations so far in its meta;
+    resume replays the multipliers and warm-starts the next outer.  A
+    checkpoint whose inner iterations already meet ``max_iter`` comes back
+    as its x with ``stop_reason`` "budget_exhausted".
+
+    ``mesh``/``shard_rows`` raise ``NotImplementedError``: their slice is not
+    ported yet.
     """
     from .base import (
         SolveResult, _reject_unported, power_lipschitz, power_lipschitz_z, refine_polish,
         solve, uses_zspace,
     )
 
-    _reject_unported(mesh=mesh is not None, shard_rows=shard_rows,
-                     checkpoint_path=checkpoint_path, resume=resume)
+    _reject_unported(mesh=mesh is not None, shard_rows=shard_rows)
     if problem.C is None:
         raise ValueError("problem has no equality constraints")
     dev = L.resolve_device(device)
@@ -179,6 +189,23 @@ def solve_equality_constrained(
     c_scale = float(np.mean(L._col_norms_sq(C))) or 1.0
     rho = float(rho_init) if rho_init > 0 else 0.1 * float(rho0) * a_scale / c_scale
 
+    n = problem.A.shape[1]
+    viol = np.inf
+    total_iters = 0
+    start_outer = 0
+    if resume and checkpoint_path:
+        ck = latest_checkpoint(checkpoint_path)
+        if ck:
+            like = {"lam": lam, "x": np.zeros((S, n) if multi else n)}
+            ck_state, meta = load_state(ck, like)
+            lam, x0 = ck_state["lam"], ck_state["x"]
+            rho = float(meta.get("rho", rho))
+            viol = float(meta.get("viol", viol))
+            total_iters = int(meta.get("total_iters", 0))
+            start_outer = int(meta.get("iteration", 0))
+            # a checkpoint at the outer budget still gets one settling outer
+            outer_iters = max(outer_iters, start_outer + 1)
+
     # z-space inners need the z-curvature; the analytic bound splits the
     # same way there, since D^T (A^T A + rho C^T C) D does
     power = power_lipschitz_z if uses_zspace(method, line_search) else power_lipschitz
@@ -203,10 +230,8 @@ def solve_equality_constrained(
             b=torch.as_tensor(b_st, dtype=dp.b.dtype).to(dp.device))
 
     result = None
-    viol = np.inf
-    total_iters = 0
     ok_streak = 0
-    for outer in range(outer_iters):
+    for outer in range(start_outer, outer_iters):
         budget = max_iter - total_iters
         if budget <= 0:
             break
@@ -252,6 +277,11 @@ def solve_equality_constrained(
                         inner_iters=int(result.iterations),
                         f=np.asarray(problem.objective_np(x)).tolist(),
                         solve_secs=t_host - t_solve, host_secs=t_end - t_host)
+        if checkpoint_path and checkpoint_every and (outer + 1) % checkpoint_every == 0:
+            save_state(checkpoint_path, {"lam": lam, "x": x},
+                       meta={"iteration": outer + 1, "rho": rho, "viol": viol,
+                             "total_iters": total_iters},
+                       keep=checkpoint_keep)
         # stop only after two consecutive outers with constraints holding and
         # the inner subproblem solved to optimality (the second pass lets the
         # multiplier update settle the objective)
@@ -259,9 +289,10 @@ def solve_equality_constrained(
         if ok_streak >= 2:
             break
     if result is None:
-        # no budget for a single outer: the warm start (zeros without one,
-        # as the reference) comes back as an honest budget-exhausted result
-        n = problem.A.shape[1]
+        # no budget for a single outer (or a resume whose checkpoint already
+        # spent it): the warm start or the checkpointed x (zeros without
+        # either, as the reference) comes back as an honest
+        # budget-exhausted result
         x_ck = (np.asarray(x0, np.float64) if x0 is not None
                 else np.zeros((S, n) if multi else n))
         result = SolveResult(

@@ -20,17 +20,13 @@ _UNPORTED_OFF = {
     "unroll": (1, "no scan to unroll: the port's chunk is a Python loop"),
     "mesh_block": (0, "distribution"),
     "mesh_scenario": (1, "distribution"),
-    "profile_dir": (None, "harness"),
-    "checkpoint_path": (None, "checkpoint/CLI rest"),
-    "checkpoint_every": (0, "checkpoint/CLI rest"),
-    "resume": (False, "checkpoint/CLI rest"),
 }
 
 
 @dataclass
 class RunConfig:
     # instance
-    config: str = "tiny"  # tiny | medium | traffic | large | <path.npz>
+    config: str = "tiny"  # tiny | medium | traffic | large | <path.npz|path.mat>
     seed: int = 0
     instance_kwargs: dict = field(default_factory=dict)
     scenarios: int = 1  # > 1 batches the instance to S right-hand sides
@@ -49,6 +45,10 @@ class RunConfig:
     # harness
     device: str = "cuda"  # cuda | cpu
     oracle: bool = False  # compute CPU float64 oracle for parity metrics
+    profile_dir: Optional[str] = None  # torch.profiler trace of the solve
+    checkpoint_path: Optional[str] = None
+    checkpoint_every: int = 0  # chunks (eq: outer iterations) between checkpoints (0 = off)
+    resume: bool = False
     metrics_path: Optional[str] = None  # JSONL metrics output
 
     def to_json(self) -> str:

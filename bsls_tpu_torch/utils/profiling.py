@@ -1,4 +1,8 @@
-"""Where a solver iteration spends the device's time.
+"""Profiling: a trace of any block (``trace``), and where a solver
+iteration spends the device's time (``profile_steps`` and the command below).
+
+    with trace("prof/"):              # the CLI's --profile-dir
+        bt.solve(prob)
 
     python -m bsls_tpu_torch.utils.profiling --config medium --scenarios 128 \
         --line-search exact,pava --iters 30 [--trace trace.json]
@@ -18,11 +22,29 @@ error, not a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import time
+from typing import Iterator, Optional
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]) -> Iterator[None]:
+    """Profile the enclosed block with ``torch.profiler`` (CPU and CUDA
+    activities) and write its Chrome trace to ``log_dir/trace_<pid>.json``
+    (no-op if ``log_dir`` is None)."""
+    if not log_dir:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}.json"))
 
 
 def profile_steps(dp, line_search: str, iters: int, warmup: int = 5, trace_path=None,

@@ -29,6 +29,18 @@ through ``prepare``/``solve``:
   first outer on the card against the CPU at S = 4, the pava line search at
   S = 4 (kernel 2 in z-space inners), and the preset ``traffic`` with
   ``refine_tol=1e-6`` against the float64 ``oracle_solve_eq``;
+* serving: an ``Endpoint`` on medium x 128 (gather layout) answering three
+  streamed (128, m) requests, each held against a direct ``solve``, with the
+  seconds a request spends outside its chunk loop; a ``BatchQueue`` fed by
+  8 client threads with 64 single-RHS requests, held against one batched
+  solve; the eq endpoints: the preset ``traffic`` (a certified request, then
+  a perturbed one on the float64 sensitivity fast path against
+  ``oracle_solve_eq``) and traffic_like x 128 (two requests, one stacked
+  operator);
+* checkpoint/resume: a child process solving medium x 128 is killed with
+  SIGKILL after its first checkpoint and the solve resumed to 400
+  iterations against an uninterrupted run; the CLI with ``--checkpoint`` and
+  ``--profile-dir`` on the card, its trace holding CUDA kernel events;
 * in a fresh process, the first chunk of the exact path against the second:
   the kernel library's load and the first launches come before the clock.
 
@@ -45,6 +57,7 @@ frame, no spills).
 """
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -975,8 +988,6 @@ ONE_STEP_LIMIT = 1e-4
 def _state_to(st, device):
     """A solver state or a prepared problem (frozen dataclasses of tensors,
     tuples of tensors and nested dataclasses) on another device."""
-    import dataclasses
-
     def move(v):
         if isinstance(v, tuple):
             return tuple(move(a) for a in v)
@@ -1210,8 +1221,6 @@ def phase_solve_banded_families(ctx, max_iter=200):
     every chunk end mapped to the gather layout (a fresh state there and on
     the band, the counter kept: afw's mix and the first L-BFGS step without
     memory), and L-BFGS's converged ends at the limit of banded_vs_gather."""
-    import dataclasses
-
     from bsls_tpu_torch.ops import layout as TL
     from bsls_tpu_torch.solvers.base import SolveOptions, _get_solver
 
@@ -1283,8 +1292,6 @@ class OuterRecords:
 
 def _tensor_bytes(obj):
     """Bytes of every tensor in a prepared problem (dataclasses, tuples)."""
-    import dataclasses
-
     if isinstance(obj, torch.Tensor):
         return obj.numel() * obj.element_size()
     if isinstance(obj, tuple):
@@ -1571,6 +1578,378 @@ def phase_solve_eq_traffic(target=1e-6):
     return counts
 
 
+# ------------------------------------------------------------------ serving
+
+
+SERVE_ITERS = 200  # every serving request: tol=0, this many pgd/exact iterations
+
+
+def _rel_diff(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def phase_serve(prob, base):
+    """``Endpoint`` at full width: medium x 128 (``prob``) prepared once
+    (gather layout), three streamed (128, m) requests held against a direct
+    ``bt.solve`` of the same problem, and where a request's time goes
+    outside the chunk loop."""
+    from bsls_tpu_torch.solvers import pgd
+    from bsls_tpu_torch.solvers.base import SolveOptions, power_lipschitz
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    ep = bt.Endpoint(prob, method="pgd", line_search="exact", chunk=100, device=DEV)
+    build_secs = time.perf_counter() - t0
+    layout = "banded" if isinstance(ep._dp.A, DeviceBanded) else "gather"
+    check(layout == "gather", f"serve: the endpoint took the {layout} layout")
+    t0 = time.perf_counter()
+    ep.warmup(SCENARIOS)
+    warmup_secs = time.perf_counter() - t0
+    reqs = [np.asarray(bt.synthetic.with_scenarios(base, SCENARIOS, seed=s).b) for s in (2, 3, 4)]
+    bt.reset_launch_counts()
+    results, walls = [], []
+    for B in reqs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(ep.solve(B, tol=0.0, max_iter=SERVE_ITERS))
+        walls.append(time.perf_counter() - t0)
+    counts = bt.launch_counts()
+    n_buckets = len(ep._dp.buckets)
+    check(counts["proj_simplex_rows"] >= len(reqs) * SERVE_ITERS * n_buckets,
+          f"serve: proj_simplex_rows launched {counts['proj_simplex_rows']} times")
+    # what a request pays outside its chunk loop, piece by piece: the upload
+    # of b, the power iteration, the throwaway warm-up step
+    dp_b = ep._with_b(reqs[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp_b = ep._with_b(reqs[0])
+    torch.cuda.synchronize()
+    upload_secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    L_est = power_lipschitz(dp_b)
+    power_secs = time.perf_counter() - t0
+    opts = SolveOptions(method="pgd", line_search="exact")
+    st = pgd.init(dp_b, L_est, opts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pgd.step(dp_b, st, L_est, opts)
+    torch.cuda.synchronize()
+    warm_step_secs = time.perf_counter() - t0
+    # each request against a direct solve of the same problem (its own
+    # prepare, the same layout and Lipschitz estimate); the first is also
+    # the cold call: prepare included
+    diffs, cold_secs = [], None
+    for B, res in zip(reqs, results):
+        check(res.x.shape == (SCENARIOS, prob.partition.n_flat), f"serve: x {res.x.shape}")
+        check(bool(np.isfinite(res.objective).all()), "serve: non-finite objective")
+        _check_simplices("serve", prob, res.x)
+        t0 = time.perf_counter()
+        direct = bt.solve(dataclasses.replace(prob, b=B), method="pgd", line_search="exact",
+                          tol=0.0, max_iter=SERVE_ITERS, chunk=100, device=DEV)
+        if cold_secs is None:
+            cold_secs = time.perf_counter() - t0
+        diffs.append(_rel_diff(res.objective, direct.objective))
+    check(max(diffs) <= 1e-5, f"serve: per-scenario objectives differ from a direct solve by "
+          f"{max(diffs):.2e} relative")
+    loop = [float(np.sum(r.chunk_times)) for r in results]
+    outside = [w - lp for w, lp in zip(walls, loop)]
+    emit("serve", instance=f"medium_sparse(seed=0) x {SCENARIOS}", layout=layout,
+         endpoint_build_secs=build_secs, warmup_secs=warmup_secs, requests=len(reqs),
+         iterations=SERVE_ITERS, request_wall_secs=walls, chunk_loop_secs=loop,
+         outside_chunk_loop_secs=outside,
+         outside_share=[o / w for o, w in zip(outside, walls)],
+         upload_secs=upload_secs, power_iteration_secs=power_secs,
+         warm_up_step_secs=warm_step_secs,
+         aggregate_steady_iters_per_sec=[SCENARIOS * r.steady_iters_per_sec() for r in results],
+         aggregate_iters_per_sec_by_wall=[SCENARIOS * SERVE_ITERS / w for w in walls],
+         cold_solve_secs_with_prepare=cold_secs, max_rel_diff_to_direct=max(diffs),
+         objective_max=[float(np.max(r.objective)) for r in results], launches=counts,
+         phase_secs=time.perf_counter() - t_phase)
+    return counts
+
+
+def phase_serve_queue(prob, base, threads=8, per_thread=8, width=32):
+    """``BatchQueue`` over an endpoint of the same instance (built with the
+    first 32 rows of ``prob``'s b): 8 client threads, each sending its
+    requests one after the other, 64 single-RHS requests in all; each answer
+    against that scenario's objective in one batched solve of all 64."""
+    import threading
+
+    t_phase = time.perf_counter()
+    prob = dataclasses.replace(prob, b=np.asarray(prob.b)[:width], x_true=None)
+    batch = bt.synthetic.with_scenarios(base, threads * per_thread, seed=5)
+    B = np.asarray(batch.b)
+    ep = bt.Endpoint(prob, method="pgd", line_search="exact", chunk=100, device=DEV)
+    for w in (8, width):  # the widths the queue will send, first launches before traffic
+        ep.warmup(w)
+    q = bt.BatchQueue(ep, max_batch=width, max_wait_ms=20, tol=0.0, max_iter=SERVE_ITERS)
+    out, lat, errors = [None] * len(B), [0.0] * len(B), []
+
+    def client(k):
+        try:
+            for j in range(per_thread):
+                i = k * per_thread + j
+                t0 = time.perf_counter()
+                out[i] = q.submit(B[i]).result(timeout=300)  # re-raises a batch's failure
+                lat[i] = time.perf_counter() - t0
+        except Exception as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    bt.reset_launch_counts()
+    workers = [threading.Thread(target=client, args=(k,)) for k in range(threads)]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=600)
+    wall = time.perf_counter() - t0
+    counts = bt.launch_counts()
+    q.close(timeout=30)
+    check(not q._worker.is_alive() and not any(w.is_alive() for w in workers),
+          "serve_queue: a thread did not stop")
+    if errors:
+        raise errors[0]
+    check(q.requests_served == len(B), f"serve_queue: served {q.requests_served} of {len(B)}")
+    check(counts["proj_simplex_rows"] > 0, "serve_queue: proj_simplex_rows was not launched")
+    ref = bt.solve(batch, method="pgd", line_search="exact", tol=0.0, max_iter=SERVE_ITERS,
+                   chunk=100, device=DEV)
+    got = np.array([r.objective for r in out])
+    diff = _rel_diff(got, ref.objective)
+    check(diff <= 1e-4, f"serve_queue: answers differ from one batched solve by {diff:.2e}")
+    check(all(r.x.shape == (prob.partition.n_flat,) for r in out), "serve_queue: x shape")
+    lat_s = np.sort(np.asarray(lat))
+    emit("serve_queue", clients=threads, requests=len(B), max_batch=width, max_wait_ms=20,
+         iterations=SERVE_ITERS, batches_run=q.batches_run,
+         mean_width=q.requests_served / q.batches_run,
+         latency_p50_secs=float(np.percentile(lat_s, 50)),
+         latency_p99_secs=float(np.percentile(lat_s, 99)), wall_secs=wall,
+         requests_per_sec=len(B) / wall, max_rel_diff_to_batched=diff, launches=counts,
+         phase_secs=time.perf_counter() - t_phase)
+    return counts
+
+
+def phase_serve_eq(ctx, perturb=0.02, target=1e-6):
+    """Two equality-constrained endpoints: (a) the preset ``traffic`` with a
+    certified first request and a perturbed second one that takes the
+    float64 sensitivity fast path, against ``oracle_solve_eq``; (b)
+    traffic_like at full width x 128 at ``solve_eq``'s budget, two requests
+    with the fast path off, one prepared stacked operator for both."""
+    import bsls_tpu_torch.ops.layout as TL
+    import bsls_tpu_torch.solvers.base as TB
+    from bsls_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    cfg = load_config("traffic")
+    prob = bt.synthetic.make_config(cfg.config, seed=cfg.seed)
+    ep = bt.Endpoint(prob, method=cfg.method, line_search=cfg.line_search, chunk=cfg.chunk,
+                     device=DEV)
+    bt.reset_launch_counts()
+    t0 = time.perf_counter()
+    r1 = ep.solve(np.asarray(prob.b), tol=cfg.tol, max_iter=cfg.max_iter, refine_tol=target)
+    secs1 = time.perf_counter() - t0
+    counts = bt.launch_counts()
+    check(r1.converged and r1.eq_violation <= 1e-6, f"serve_eq: request 1 converged "
+          f"{r1.converged}, violation {r1.eq_violation:.2e}")
+    check(r1.refine_fw_gap is not None and r1.refine_fw_gap <= target,
+          f"serve_eq: request 1's certificate {r1.refine_fw_gap}")
+    check(counts["proj_simplex_rows"] > 0, "serve_eq: proj_simplex_rows was not launched")
+    # the perturbation of the reference's test of the fast path (seed 1):
+    # the walk is certificate-gated and falls back to the AL solve where it
+    # does not converge, which some 2% draws do on this instance
+    rng = np.random.default_rng(1)
+    b2 = (np.asarray(prob.b, np.float64)
+          * (1.0 + perturb * rng.standard_normal(prob.A.shape[0]))).astype(np.float32)
+    t0 = time.perf_counter()
+    r2 = ep.solve(b2, tol=cfg.tol, max_iter=cfg.max_iter)
+    secs2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    orc = bt.oracle_solve_eq(dataclasses.replace(prob, b=b2))
+    oracle_secs = time.perf_counter() - t0
+    f2 = float(r2.objective)
+    rel2 = abs(f2 - orc.objective) / max(abs(orc.objective), 1e-30)
+    check(r2.stop_reason == "sensitivity", f"serve_eq: request 2 stopped by {r2.stop_reason!r}")
+    check(rel2 <= 1e-9, f"serve_eq: request 2's objective {f2!r} against the oracle's "
+          f"{orc.objective!r} ({rel2:.2e} relative)")
+    check(r2.eq_violation <= 1e-6, f"serve_eq: request 2's violation {r2.eq_violation:.2e}")
+    _check_simplices("serve_eq", prob, r2.x)
+
+    # (b) the full-width instance: one stacked operator for both requests
+    big = ctx["eq_prob"]
+    ep_big = bt.Endpoint(big, method="pgd", line_search="exact", chunk=100, device=DEV)
+    # the prepares and the inner solves (one per outer, with their seconds)
+    # counted by wrapping the two functions: a metrics sink would add a
+    # float64 host objective per outer to the request
+    prepares, real_prepare, inner, real_solve = [0], TL.prepare, [], TB.solve
+
+    def counting_prepare(*a, **k):
+        prepares[0] += 1
+        return real_prepare(*a, **k)
+
+    def timed_solve(*a, **k):
+        t0 = time.perf_counter()
+        out = real_solve(*a, **k)
+        inner.append(time.perf_counter() - t0)
+        return out
+
+    B1 = np.asarray(big.b)
+    B2 = (B1 * (1.0 + 0.01 * np.random.default_rng(71).standard_normal(B1.shape))
+          ).astype(np.float32)
+    rows, entry = [], None
+    TL.prepare, TB.solve = counting_prepare, timed_solve
+    try:
+        for k, B in enumerate((B1, B2)):
+            inner.clear()
+            bt.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = ep_big.solve(B, max_iter=EQ_BUDGET, inner_iters=EQ_INNER, eq_tol=1e-6,
+                               sensitivity=False)
+            secs = time.perf_counter() - t0
+            c = bt.launch_counts()
+            for name in counts:
+                counts[name] += c[name]
+            check(res.x.shape == (EQ_SCENARIOS, big.partition.n_flat), "serve_eq: x shape")
+            check(bool(np.isfinite(res.objective).all()) and np.isfinite(res.eq_violation),
+                  "serve_eq: non-finite result")
+            check(len(ep_big._eq_ops) == 1, f"serve_eq: {len(ep_big._eq_ops)} op_cache entries")
+            (now,) = ep_big._eq_ops.values()
+            check(entry is None or now[0] is entry, "serve_eq: request 2 re-prepared")
+            entry = now[0]
+            rows.append({"outers": len(inner), "iterations": res.iterations, "secs": secs,
+                         "solve_secs": sum(inner),
+                         "eq_violation": res.eq_violation, "stop_reason": res.stop_reason,
+                         "proj_simplex_rows_launches": c["proj_simplex_rows"]})
+    finally:
+        TL.prepare, TB.solve = real_prepare, real_solve
+    # the float64 host objective of the (S, n) x: the AL loop computes it
+    # once for the result (and for each outer's record when given a sink)
+    t0 = time.perf_counter()
+    big.objective_np(np.asarray(res.x, np.float64))
+    objective_secs = time.perf_counter() - t0
+    check(prepares[0] == 1, f"serve_eq: {prepares[0]} prepares for two requests")
+    emit("serve_eq", traffic={"shape": list(prob.A.shape), "C": list(prob.C.shape),
+                              "request1_secs": secs1, "request1_iterations": r1.iterations,
+                              "request1_eq_violation": r1.eq_violation,
+                              "request1_certificate": r1.refine_fw_gap,
+                              "request2_secs": secs2, "request2_stop_reason": r2.stop_reason,
+                              "request2_objective": f2, "oracle_objective": orc.objective,
+                              "request2_rel_to_oracle": rel2,
+                              "request2_eq_violation": r2.eq_violation,
+                              "request2_certificate": r2.refine_fw_gap,
+                              "oracle_secs": oracle_secs},
+         traffic_like_x128={"requests": rows, "prepares": prepares[0],
+                            "perturbation": 0.01, "host_objective_secs": objective_secs},
+         launches=counts, phase_secs=time.perf_counter() - t_phase)
+    return counts
+
+
+# --------------------------------------------------------------- checkpoint
+
+
+def checkpoint_child(path):
+    """``--checkpoint-child PATH``: medium x 128 (pgd/exact, the b that the
+    parent saved beside PATH as ``b.npy``) that checkpoints every chunk (two
+    kept) until it is killed; each chunk is stretched to about a second so
+    that the kill lands well before iteration 400, and the budget ends an
+    orphaned child within a minute."""
+    base = bt.synthetic.medium_sparse(seed=0)
+    b = np.load(os.path.join(os.path.dirname(path), "b.npy"))
+    dp = bt.prepare(dataclasses.replace(base, b=b), device=DEV)
+    bt.solve(dp, method="pgd", line_search="exact", tol=0.0, max_iter=3000, chunk=100,
+             checkpoint_path=path, checkpoint_every=1, checkpoint_keep=2,
+             callback=lambda it, st: time.sleep(1.0))
+
+
+def phase_checkpoint(prob, dp, total=400):
+    """SIGKILL a solving child after its first checkpoint, resume to
+    ``total`` iterations and hold the result against an uninterrupted run;
+    then the CLI on the card with --checkpoint and --profile-dir."""
+    import signal
+    import tempfile
+
+    from bsls_tpu_torch.utils.checkpoint import latest_checkpoint, load_state, save_state
+    from bsls_tpu_torch.solvers import pgd
+    from bsls_tpu_torch.solvers.base import SolveOptions
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck.npz")
+        np.save(os.path.join(tmp, "b.npy"), np.asarray(prob.b))
+        err_path = os.path.join(tmp, "child.err")
+        with open(err_path, "w") as err:
+            proc = subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"),
+                                     "--checkpoint-child", ck], cwd=here,
+                                    stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            deadline = time.time() + 300
+            while time.time() < deadline and latest_checkpoint(ck) is None:
+                if proc.poll() is not None:
+                    with open(err_path) as fh:
+                        raise PhaseFailed("checkpoint: the child exited before its first "
+                                          f"checkpoint:\n{fh.read()[-2000:]}")
+                time.sleep(0.05)
+            check(latest_checkpoint(ck) is not None, "checkpoint: no checkpoint appeared")
+            os.kill(proc.pid, signal.SIGKILL)  # the exact PID, never a pattern
+        finally:
+            if proc.poll() is None:
+                os.kill(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=60)
+        found = latest_checkpoint(ck)
+        like = pgd.init(dp, 1.0, SolveOptions())
+        _, meta = load_state(found, like)
+        resumed_from = int(meta["iteration"])
+        check(0 < resumed_from < total, f"checkpoint: resumed from iteration {resumed_from}")
+        bt.reset_launch_counts()
+        resumed = bt.solve(dp, method="pgd", line_search="exact", tol=0.0, max_iter=total,
+                           chunk=100, checkpoint_path=ck, checkpoint_every=1, checkpoint_keep=2,
+                           resume=True)
+        counts = bt.launch_counts()
+        full = bt.solve(dp, method="pgd", line_search="exact", tol=0.0, max_iter=total,
+                        chunk=100)
+        diff = _rel_diff(resumed.objective, full.objective)
+        check(resumed.iterations == total and diff <= 1e-5,
+              f"checkpoint: resumed run ({resumed.iterations} iterations) differs from the "
+              f"uninterrupted one by {diff:.2e} relative")
+        # the save's seconds and bytes at this state (S = 128, medium)
+        save_secs = []
+        state = pgd.init(dp, 1.0, SolveOptions())
+        for k in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_state(os.path.join(tmp, "timed.npz"), state, meta={"iteration": k})
+            save_secs.append(time.perf_counter() - t0)
+        file_bytes = os.path.getsize(os.path.join(tmp, "timed.npz"))
+        t0 = time.perf_counter()
+        load_state(os.path.join(tmp, "timed.npz"), state)
+        torch.cuda.synchronize()
+        load_secs = time.perf_counter() - t0
+
+        # the CLI on the card: checkpoints and a profiler trace with kernels
+        prof = os.path.join(tmp, "prof")
+        cli = subprocess.run([sys.executable, "-m", "bsls_tpu_torch", "--config", "tiny",
+                              "--max-iter", "300", "--checkpoint", os.path.join(tmp, "cli.npz"),
+                              "--checkpoint-every", "1", "--profile-dir", prof],
+                             capture_output=True, text=True, cwd=here, timeout=600)
+        check(cli.returncode == 0, f"checkpoint: the CLI failed:\n{cli.stderr[-2000:]}")
+        line = json.loads(cli.stdout.strip().splitlines()[-1])
+        check(os.path.exists(os.path.join(tmp, "cli.npz")), "checkpoint: the CLI saved nothing")
+        traces = os.listdir(prof)
+        check(len(traces) == 1, f"checkpoint: profile dir holds {traces}")
+        with open(os.path.join(prof, traces[0])) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        check(len(kernels) > 0, "checkpoint: the CLI's trace holds no CUDA kernel event")
+        csrc = sum(1 for e in kernels if "bsls::" in e.get("name", ""))
+    emit("checkpoint", scenarios=SCENARIOS, resumed_from=resumed_from, total=total,
+         max_rel_diff_to_uninterrupted=diff, save_secs=save_secs, load_secs=load_secs,
+         bytes_per_file=file_bytes, cli_device=line["device"],
+         cli_iterations=line["iterations"], cli_trace_kernel_events=len(kernels),
+         cli_trace_csrc_kernel_events=csrc, launches=counts,
+         phase_secs=time.perf_counter() - t_phase)
+    return counts
+
+
 def chunk0_child():
     """``--chunk0-child``: a fresh process that solves medium x 128 (pgd,
     exact, three chunks of 100) and prints its chunk wall times.  The kernel
@@ -1604,9 +1983,14 @@ def main():
                          "run for a new kernel")
     ap.add_argument("--chunk0-child", action="store_true",
                     help="the fresh process of the chunk0 phase (prints its chunk times only)")
+    ap.add_argument("--checkpoint-child", default=None, metavar="PATH",
+                    help="the process of the checkpoint phase that is killed mid-run")
     args = ap.parse_args()
     if args.chunk0_child:
         chunk0_child()
+        return
+    if args.checkpoint_child:
+        checkpoint_child(args.checkpoint_child)
         return
     t_start = time.perf_counter()
 
@@ -1669,6 +2053,11 @@ def main():
     new_paths.append(phase_solve_eq(ctx))
     new_paths.append(phase_solve_eq_pava(ctx))
     new_paths.append(phase_solve_eq_traffic())
+    # serving and checkpoint/resume: kernel 1 in every request
+    new_paths.append(phase_serve(prob, base))
+    new_paths.append(phase_serve_queue(prob, base))
+    new_paths.append(phase_serve_eq(ctx))
+    new_paths.append(phase_checkpoint(prob, dp))
     for name, err in ctx["eq_row_errs"].items():
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
     phase_chunk0()

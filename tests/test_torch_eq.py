@@ -485,8 +485,6 @@ REJECTED = {
     "lipschitz": (ValueError, dict(lipschitz=1.0)),
     "stop_rule": (ValueError, dict(stop_rule="gap")),
     "mesh": (NotImplementedError, dict(mesh=object())),
-    "checkpoint_path": (NotImplementedError, dict(checkpoint_path="ck")),
-    "resume": (NotImplementedError, dict(resume=True)),
 }
 
 
@@ -508,11 +506,3 @@ def test_eq_solve_needs_the_card_unless_asked_for_the_cpu():
         bt.solve(small(tsyn), max_iter=10)
     with pytest.raises(NotImplementedError, match="distribution"):
         bt.solve_equality_constrained(small(tsyn), device="cpu", shard_rows=True)
-
-
-@pytest.mark.parametrize("name", ["checkpoint_every", "checkpoint_keep"])
-def test_eq_solve_takes_no_checkpoint_cadence(name):
-    """The cadence of a checkpoint comes with the checkpoint slice: until
-    then the loop does not take it, rather than take it and do nothing."""
-    with pytest.raises(TypeError, match=name):
-        bt.solve_equality_constrained(small(tsyn), device="cpu", max_iter=10, **{name: 1})

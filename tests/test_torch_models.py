@@ -113,8 +113,13 @@ def test_npz_roundtrip_and_cross_load(tmp_path):
             np.testing.assert_array_equal(q.partition.sizes, pt.partition.sizes)
             for k, a in _matrix_arrays(pt.A).items():
                 np.testing.assert_array_equal(_matrix_arrays(q.A)[k], a)
-    with pytest.raises(NotImplementedError):
-        bt.Problem.load("instance.mat")
+    # a .mat goes to the MATLAB loader: a file that is neither a classic
+    # nor an HDF5 one surfaces scipy's error in both packages
+    junk = tmp_path / "junk.mat"
+    junk.write_bytes(b"not a MATLAB file" * 16)
+    for load in (bt.Problem.load, bsls_tpu.Problem.load):
+        with pytest.raises(ValueError):
+            load(str(junk))
 
 
 def test_oracle_matches_reference_oracle():
@@ -156,10 +161,111 @@ def test_config_loads_reference_files_and_rejects_unported():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfg = load_config(os.path.join(repo, "configs", "medium-pgd.json"))
     assert (cfg.config, cfg.method, cfg.line_search) == ("medium", "pgd", "exact")
-    with pytest.raises(NotImplementedError, match="checkpoint_path"):
-        RunConfig.from_dict({"config": "tiny", "checkpoint_path": "ck"})
+    # the checkpoint and profile fields are ported: they load as given
+    cfg = RunConfig.from_dict({"config": "tiny", "checkpoint_path": "ck", "checkpoint_every": 2,
+                               "resume": True, "profile_dir": "prof"})
+    assert (cfg.checkpoint_path, cfg.checkpoint_every, cfg.resume, cfg.profile_dir) == (
+        "ck", 2, True, "prof")
     with pytest.raises(NotImplementedError, match="mesh_block"):
         RunConfig.from_dict({"config": "tiny", "mesh_block": 8})
     assert load_config("tiny", device="cpu").device == "cpu"
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def _assert_same_problem(pt, pj):
+    """A problem loaded by the port and by the reference: array for array."""
+    np.testing.assert_array_equal(pt.b, pj.b)
+    np.testing.assert_array_equal(pt.partition.sizes, pj.partition.sizes)
+    assert pt.shape == pj.shape and pt.name == pj.name
+    for k, a in _matrix_arrays(pj.A).items():
+        np.testing.assert_array_equal(_matrix_arrays(pt.A)[k], a)
+    for name in ("d", "x_true"):
+        a, b = getattr(pt, name), getattr(pj, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+    assert (pt.C is None) == (pj.C is None)
+    if pt.C is not None:
+        for k, a in _matrix_arrays(pj.C).items():
+            np.testing.assert_array_equal(_matrix_arrays(pt.C)[k], a)
+
+
+def _mat_instance(seed, fmt):
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    sizes = np.array([3, 4, 2])
+    n = int(sizes.sum())
+    A = sp.random(12, n, density=0.5, random_state=seed, format=fmt)
+    x_true = np.concatenate([rng.dirichlet(np.ones(s)) for s in sizes])
+    C = rng.standard_normal((2, n))
+    return sizes, A, x_true, A @ x_true, C, C @ x_true
+
+
+@pytest.mark.parametrize("with_c", [False, True])
+def test_mat_v5_loads_like_the_reference(tmp_path, with_c):
+    """A classic .mat (scipy.io.savemat, sparse A) through both packages."""
+    from scipy.io import savemat
+
+    sizes, A, x_true, b, C, d = _mat_instance(9, "csr")
+    arrays = {"A": A, "b": b, "block_sizes": sizes, "x_true": x_true}
+    if with_c:
+        arrays.update(C=C, d=d)
+    path = str(tmp_path / "inst.mat")
+    savemat(path, arrays)
+    pt, pj = bt.Problem.load(path), bsls_tpu.Problem.load(path)
+    _assert_same_problem(pt, pj)
+    assert pt.shape == (12, int(sizes.sum())) and (pt.C is not None) == with_c
+    np.testing.assert_allclose(pt.A.matvec(x_true), b, atol=1e-10)
+
+
+@pytest.mark.parametrize("c_rows", [2, 1])
+def test_mat73_loads_like_the_reference(tmp_path, c_rows):
+    """A MATLAB v7.3 (HDF5) file in MATLAB's own layout (the reference's
+    tests/test_models.py::test_mat73_loader): sparse A as a CSC group with a
+    MATLAB_sparse row count, dense arrays transposed, the 512-byte userblock
+    with the MATLAB header (with one C row: stored (n, 1), loaded (1, n))."""
+    import h5py
+
+    sizes, A, x_true, b, C, d = _mat_instance(11, "csc")
+    path = str(tmp_path / "inst73.mat")
+    with h5py.File(path, "w", userblock_size=512) as f:
+        g = f.create_group("A")
+        g.attrs["MATLAB_sparse"] = np.uint64(A.shape[0])
+        g.create_dataset("data", data=A.data)
+        g.create_dataset("ir", data=A.indices.astype(np.uint64))
+        g.create_dataset("jc", data=A.indptr.astype(np.uint64))
+        f.create_dataset("b", data=b.reshape(1, -1))
+        f.create_dataset("block_sizes", data=sizes.astype(np.float64).reshape(1, -1))
+        f.create_dataset("C", data=C[:c_rows].T)
+        f.create_dataset("d", data=d[:c_rows].reshape(1, -1))
+        f.create_dataset("x_true", data=x_true.reshape(1, -1))
+    with open(path, "r+b") as fh:
+        fh.write(b"MATLAB 7.3 MAT-file" + b" " * 105 + bytes([0, 2, ord("I"), ord("M")]))
+    pt, pj = bt.Problem.load(path), bsls_tpu.Problem.load(path)
+    _assert_same_problem(pt, pj)
+    assert pt.C.shape == (c_rows, int(sizes.sum()))
+    np.testing.assert_allclose(pt.C.matvec(x_true), d[:c_rows], atol=1e-10)
+
+
+def test_mat73_without_h5py_names_it(tmp_path, monkeypatch):
+    """h5py is needed only for v7.3 files, and its absence is an ImportError
+    that names it, not a fall-back to anything."""
+    import builtins
+
+    import h5py
+
+    path = str(tmp_path / "bare.mat")
+    with h5py.File(path, "w") as f:  # a bare HDF5 file: scipy raises ValueError
+        f.create_dataset("b", data=np.zeros((1, 3)))
+    real_import = builtins.__import__
+
+    def no_h5py(name, *a, **k):
+        if name == "h5py":
+            raise ImportError("No module named 'h5py'")
+        return real_import(name, *a, **k)
+
+    monkeypatch.setattr(builtins, "__import__", no_h5py)
+    with pytest.raises(ImportError, match="h5py"):
+        bt.Problem.load(path)

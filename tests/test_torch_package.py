@@ -136,8 +136,6 @@ def test_default_device_without_a_card_raises():
 
 UNPORTED = {
     "mesh": dict(mesh=object()),
-    "checkpoint_path": dict(checkpoint_path="ck"),
-    "resume": dict(resume=True),
 }
 
 
@@ -241,12 +239,40 @@ def test_cli_runs_on_the_cpu_and_counts_no_launch():
     assert bt.launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
-@pytest.mark.parametrize("flag", [["--profile-dir", "p"], ["--mesh-block", "8"], ["--resume"],
-                                  ["--checkpoint", "ck"], ["--unroll", "4"]])
+@pytest.mark.parametrize("flag", [["--mesh-block", "8"], ["--unroll", "4"]])
 def test_cli_rejects_flags_of_unported_parts(flag):
     proc = _cli("--device", "cpu", "--config", "tiny", *flag)
     assert proc.returncode == 2
     assert "unrecognized arguments" in proc.stderr
+
+
+def test_cli_checkpoint_resume_and_profile_dir(tmp_path):
+    """--checkpoint/--checkpoint-every save the state per chunk, --resume
+    continues from it to the uninterrupted run's answer, and --profile-dir
+    writes a torch.profiler trace."""
+    ck, prof = str(tmp_path / "ck.npz"), str(tmp_path / "prof")
+    base = ("--device", "cpu", "--config", "tiny", "--scenarios", "2")
+    proc = _cli(*base, "--max-iter", "200", "--checkpoint", ck, "--checkpoint-every", "1",
+                "--profile-dir", prof)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1])["iterations"] == 200
+    from bsls_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    assert latest_checkpoint(ck) == ck
+    (trace,) = os.listdir(prof)
+    with open(os.path.join(prof, trace)) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any("aten::" in str(e.get("name", "")) for e in events)
+    resumed = _cli(*base, "--max-iter", "400", "--checkpoint", ck, "--checkpoint-every", "1",
+                   "--resume")
+    assert resumed.returncode == 0, resumed.stderr
+    r = json.loads(resumed.stdout.strip().splitlines()[-1])
+    import bsls_tpu_torch as bt
+
+    prob = bt.synthetic.with_scenarios(bt.synthetic.make_config("tiny", seed=0), 2, seed=1)
+    full = bt.solve(prob, tol=1e-6, max_iter=400, device="cpu")
+    assert r["iterations"] == full.iterations == 400
+    np.testing.assert_allclose(r["objective"], full.objective, rtol=1e-6)
 
 
 def test_cli_refine_prints_refine_secs():
