@@ -14,9 +14,11 @@ eg, frank_wolfe, afw) on the gather and the banded layout, ``certify=K``,
 (``Endpoint``, ``BatchQueue``), checkpoint/resume, the ``.mat`` loader and the
 CLI, all on one device, with CUDA kernels (``csrc/``) for the block-simplex
 projection, the bounded isotonic regression, the two per-page band
-contractions and the fused chunk of PGD iterations.  Only the mesh
-(distribution) is not ported.  Entry points take ``device=`` and default to
-``"cuda"``; they run on the CPU only when asked to.
+contractions and the fused chunk of PGD iterations; and the unconstrained
+solve on a ``torch.distributed`` mesh (``make_mesh``, ``solve(mesh=...)``:
+column, row, 2-D and banded sharding).  The equality-constrained path and
+serving on a mesh are not ported yet.  Entry points take ``device=`` and
+default to ``"cuda"``; they run on the CPU only when asked to.
 
 Precision: fp32 on the device with float64 anchors on the host.  Dense and
 batched contractions stay at full fp32 — reduced-precision matrix passes cap
@@ -42,6 +44,7 @@ from .ops.layout import DeviceProblem, prepare  # noqa: E402
 from .ops.cudalib import launch_counts, reset_launch_counts  # noqa: E402
 from .solvers import SolveResult, solve, solve_equality_constrained  # noqa: E402
 from .serving import BatchQueue, Endpoint  # noqa: E402
+from .parallel import init_distributed, make_mesh  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -63,4 +66,6 @@ __all__ = [
     "BatchQueue",
     "launch_counts",
     "reset_launch_counts",
+    "init_distributed",
+    "make_mesh",
 ]

@@ -10,6 +10,8 @@
     python -m bsls_tpu_torch --config instance.npz --oracle      # or .mat (v5-v7.3)
     python -m bsls_tpu_torch --config medium --checkpoint ck.npz --checkpoint-every 5 [--resume]
     python -m bsls_tpu_torch --config tiny --profile-dir prof/ --device cpu
+    torchrun --nproc-per-node 2 -m bsls_tpu_torch --config tiny --mesh-block 2 --device cpu
+    python -m bsls_tpu_torch --preset large --mesh-block 1     # a world of one
 
 Emits one JSON result line: iterations/s, objective, FW gap, the torch
 device, ``refine_secs``/``refine_fw_gap`` after a polish, ``eq_violation``
@@ -21,9 +23,11 @@ own f*.  Every solver family of the reference runs (``--method``).
 ``--checkpoint``/``--checkpoint-every``/``--resume`` checkpoint the solver
 state every K chunks (outer iterations on an equality-constrained instance)
 and resume from the newest checkpoint; ``--profile-dir`` writes a
-``torch.profiler`` trace of the solve.  Only the mesh is not ported: its
-flags (``--mesh-block``, ``--mesh-scenario``) do not exist here and are
-rejected by the parser.
+``torch.profiler`` trace of the solve.  ``--mesh-block B [--mesh-scenario
+S]`` solves on a B x S mesh (``parallel.make_mesh``) of the ``torchrun``
+world, or of a world of one without ``torchrun``; the result line gains
+``"mesh"`` and is printed by rank 0 only, and metrics and checkpoints are
+off under a mesh, as in the reference.
 """
 from __future__ import annotations
 
@@ -61,6 +65,10 @@ def build_parser():
                    help="certified adaptive refine: polish until the float64 FW duality "
                         "gap certifies this relative gap (--refine caps rounds); the "
                         "certificate is reported as refine_fw_gap")
+    p.add_argument("--mesh-block", dest="mesh_block", type=int, default=None,
+                   help="block axis of a mesh over the torch.distributed world (0: no mesh)")
+    p.add_argument("--mesh-scenario", dest="mesh_scenario", type=int, default=None,
+                   help="scenario axis of the mesh")
     p.add_argument("--oracle", action="store_true", default=None)
     p.add_argument("--profile-dir", dest="profile_dir", default=None,
                    help="write a torch.profiler trace of the solve into this directory")
@@ -92,11 +100,16 @@ def main(argv=None):
         k: getattr(args, k)
         for k in ("config method line_search scenarios layout tol max_iter chunk seed "
                   "refine refine_tol oracle profile_dir metrics_path checkpoint_path "
-                  "checkpoint_every resume device").split()
+                  "checkpoint_every resume device mesh_block mesh_scenario").split()
         if getattr(args, k) is not None
     }
     cfg = load_config(args.preset or args.config or "tiny", **overrides)
     dev = resolve_device(cfg.device)  # no card and no --device cpu: raises here
+    mesh = None
+    if cfg.mesh_block:
+        mesh = bsls.make_mesh(block=cfg.mesh_block, scenario=cfg.mesh_scenario,
+                              device=cfg.device)
+        dev = mesh.device
 
     t_gen = time.perf_counter()
     if cfg.config in _CONFIGS:
@@ -124,6 +137,10 @@ def main(argv=None):
             f_star = cached_oracle_objective(prob, key)
 
     eq = prob.C is not None
+    if eq and mesh is not None:
+        raise NotImplementedError(
+            "--mesh-block of an equality-constrained instance is not ported yet (later "
+            "slice: distribution, the equality-constrained mesh branches)")
     if eq and (cfg.layout == "banded" or not cfg.equilibrate):
         raise ValueError("an equality-constrained instance runs on the equilibrated gather "
                          "layout of its stacked operator: drop --layout banded / "
@@ -132,9 +149,9 @@ def main(argv=None):
         mw.log("config", **json.loads(cfg.to_json()))
         kw = dict(method=cfg.method, line_search=cfg.line_search, tol=cfg.tol,
                   max_iter=cfg.max_iter, chunk=cfg.chunk, step_size=cfg.step_size,
-                  metrics=mw if cfg.metrics_path else None,
-                  checkpoint_path=cfg.checkpoint_path, checkpoint_every=cfg.checkpoint_every,
-                  resume=cfg.resume)
+                  metrics=mw if cfg.metrics_path and mesh is None else None,
+                  checkpoint_path=cfg.checkpoint_path if mesh is None else None,
+                  checkpoint_every=cfg.checkpoint_every, resume=cfg.resume)
         rounds = cfg.refine or (DEFAULT_REFINE_ROUNDS if cfg.refine_tol is not None else 0)
         with trace(cfg.profile_dir):
             if eq:
@@ -143,6 +160,15 @@ def main(argv=None):
                 dp = None
                 res = bsls.solve(prob, dtype=getattr(torch, cfg.dtype), refine=cfg.refine,
                                  refine_tol=cfg.refine_tol, device=dev, **kw)
+            elif mesh is not None:
+                from bsls_tpu_torch.parallel.sharding import shard_problem, solve_sharded
+
+                dp, part = shard_problem(prob, mesh, dtype=getattr(torch, cfg.dtype),
+                                         equilibrate=cfg.equilibrate, layout=cfg.layout)
+                res = solve_sharded((dp, part, np.ndim(prob.b) == 1), mesh, **kw)
+                if rounds:  # the gathered result, polished on the host
+                    res = refine_polish(prob, None, res, rounds=rounds,
+                                        target_rel_gap=cfg.refine_tol)
             else:
                 dp = bsls.prepare(prob, dtype=getattr(torch, cfg.dtype),
                                   equilibrate=cfg.equilibrate, layout=cfg.layout, device=dev)
@@ -162,7 +188,8 @@ def main(argv=None):
             "scenarios": cfg.scenarios,
             "layout": "banded" if dp is not None and isinstance(dp.A, DeviceBanded) else "gather",
             "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
-            "n_devices": 1,
+            "n_devices": 1 if mesh is None else mesh.size,
+            "mesh": None if mesh is None else dict(mesh.shape),
             "iterations": int(res.iterations),
             "converged": bool(res.converged),
             "objective": np.asarray(res.objective).tolist(),
@@ -185,7 +212,8 @@ def main(argv=None):
             t6 = res.time_to_gap(f_star, rel=1e-6)
             out["time_to_1e-6_gap_s"] = None if t6 is None else round(t6, 4)
         mw.log("result", **out)
-    print(json.dumps(out))
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(out))
     return out
 
 

@@ -31,8 +31,16 @@ so the least time of a product is the time to stream the band tensors once.
 The residual rides the gather path.  Profitability is decided at prepare time
 from the measured fit fraction and the band memory.
 
-Counterpart of ``bsls_tpu/ops/banded.py`` for one device.  Scenarios are an
-explicit leading axis: vectors are (n,) or (S, n), and the contractions go to
+Block sharding: the band tensors shard along the GROUP axis.  In the
+value-grouped layout groups are contiguous block ranges, so a group shard is
+exactly a block shard, and shard d's contribution to A x is the contiguous
+row window starting at ladder page ``page_off = d * gl``, placed into a
+zero full-m partial that the caller sums over the column shards (the same
+collective as the gather layout's); its A^T r reads its windows of the
+padded residual at that page offset.
+
+Counterpart of ``bsls_tpu/ops/banded.py``.  Scenarios are an explicit leading
+axis: vectors are (n,) or (S, n), and the contractions go to
 ``ops/pagekernels.py`` with S as their leading dimension.
 """
 from __future__ import annotations
@@ -59,16 +67,21 @@ class DeviceBanded:
 
     Group g's window covers logical row pages [g - back, g - back + wpages)
     — in the front-padded page coordinates the products use, the window of
-    group g always starts at padded page g, which keeps every slice static."""
+    group g always starts at padded page g, which keeps every slice static.
 
-    bands: tuple  # tuple[(Mp, C_b, W) tensor]
+    A block shard holds gl = ``bands[0].shape[0]`` < ``pages`` groups, the
+    ones from global ladder page ``page_off`` on; ``n_pf`` and ``seg_lens``
+    are then the shard's."""
+
+    bands: tuple  # tuple[(gl, C_b, W) tensor]
     resid: Optional[object]  # DeviceEll or None
     num_rows: int  # original m
     wpages: int  # window width in pages
     back: int  # pages the window extends BEHIND the ladder page
     n_pf: int
     seg_lens: tuple  # PF length per bucket segment
-    pages: int  # ladder page count Mp
+    pages: int  # GLOBAL ladder page count Mp (padded to the shard count)
+    page_off: int = 0  # global ladder page of this shard's first group
 
 
 def block_window_key(rows_pf: np.ndarray, vals_pf: np.ndarray) -> np.ndarray:
@@ -212,22 +225,28 @@ def build_banded_split(
 
 
 def _matvec_core(A: DeviceBanded, x_pf: torch.Tensor) -> torch.Tensor:
-    """The band's contribution to A @ x for x_pf of shape (S, n_pf)."""
-    S, Mp, wpages = x_pf.shape[0], A.pages, A.wpages
+    """The band's contribution to A @ x for x_pf of shape (S, n_pf): a
+    full-m partial whose nonzero rows lie in pages [page_off - back,
+    page_off + gl - back + wpages)."""
+    S, gl, wpages = x_pf.shape[0], A.bands[0].shape[0], A.wpages
     Z = None
     off = 0
     for band in A.bands:
         C = band.shape[1]
-        L = Mp * C  # exact: the value-grouped partition pads every group
-        z = band_zmv(band, x_pf[:, off:off + L].reshape(S, Mp, C))
+        L = gl * C  # exact: the value-grouped partition pads every group
+        z = band_zmv(band, x_pf[:, off:off + L].reshape(S, gl, C))
         Z = z if Z is None else Z.add_(z)  # z is a fresh buffer
         off += L
     # overlap-add in front-padded page coordinates (group g starts at padded
     # page g): wpages static shifted adds, no scatter
-    pages = x_pf.new_zeros((S, Mp + wpages, PAGE))
+    pages = x_pf.new_zeros((S, gl + wpages, PAGE))
     for j in range(wpages):
-        pages[:, j:j + Mp] += Z[:, :, j * PAGE:(j + 1) * PAGE]
+        pages[:, j:j + gl] += Z[:, :, j * PAGE:(j + 1) * PAGE]
     flat = pages.view(S, -1)
+    if gl < A.pages:  # a block shard: place its window in a zero full-m partial
+        y = x_pf.new_zeros((S, (A.pages + wpages) * PAGE))
+        y[:, A.page_off * PAGE:A.page_off * PAGE + flat.shape[1]] = flat
+        flat = y
     return flat[:, A.back * PAGE:A.back * PAGE + A.num_rows]
 
 
@@ -241,10 +260,11 @@ def _rp_flat(A: DeviceBanded, r: torch.Tensor) -> torch.Tensor:
 
 def _rmatvec_core(A: DeviceBanded, rp_flat: torch.Tensor) -> torch.Tensor:
     """A_band^T r from the front-padded residual.  The window matrix
-    Rw[s, g, :] = rp[s, g*PAGE : g*PAGE + W] is a strided view: the windows of
-    neighbouring pages overlap and are never copied."""
-    S, Mp, W = rp_flat.shape[0], A.pages, A.wpages * PAGE
-    Rw = rp_flat.as_strided((S, Mp, W), (rp_flat.stride(0), PAGE, 1))
+    Rw[s, g, :] = rp[s, (page_off + g)*PAGE : (page_off + g)*PAGE + W] is a
+    strided view: the windows of neighbouring pages overlap and are never
+    copied."""
+    S, gl, W = rp_flat.shape[0], A.bands[0].shape[0], A.wpages * PAGE
+    Rw = rp_flat[:, A.page_off * PAGE:].as_strided((S, gl, W), (rp_flat.stride(0), PAGE, 1))
     outs = [band_grmv(band, Rw).reshape(S, -1) for band in A.bands]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 

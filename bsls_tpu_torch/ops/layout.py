@@ -19,8 +19,21 @@ layout (``ops/banded.py``) for a sparse A (an ``EllMatrix``) with fewer than
 16 scenarios and keeps the gather layout otherwise.  The stacked operator
 ``[A; s C]`` of the equality-constrained path is a ``DeviceVStack`` of two
 gather-layout parts whose scale ``s`` is a 0-d tensor, so the augmented
-Lagrangian's penalty changes without a new ``prepare``.  The sharded
-encodings are not ported yet.
+Lagrangian's penalty changes without a new ``prepare``.
+
+**Sharded encodings.**  ``prepare(n_shards=, row_shards=, shard=)`` lays A's
+columns out device-major (every bucket's rows split evenly over the column
+shards) and returns ONE rank's slice, the tile ``shard = (row shard, column
+shard)``: the rank uploads only that.  Column-sharded ELL keeps the column
+orientation of its own columns and a row copy with local column ids; a
+row-sharded or 2-D ELL is re-encoded per tile with local row ids (and local
+column ids on the 2-D grid).  ``col_group``/``row_group`` are the process
+groups the columns and the rows are split over; ``matvec_ps``,
+``rmatvec_ps``, ``psum_if_sharded``, ``xdot``, ``rdot`` and ``xmatdot``
+all-reduce over them (``quadratic.diag_quad`` too, over the row group), and
+with the sharded solve's gathers in ``parallel/sharding.py`` these are the only
+collectives.  A group of size 1 still gets its collective: there is one
+code path.
 """
 from __future__ import annotations
 
@@ -30,6 +43,7 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.partition import BlockPartition
 from ..models.problem import DenseMatrix, EllMatrix, Problem, ScaledMatrix, VStackMatrix
@@ -56,6 +70,9 @@ __all__ = [
     "gather_dot",
     "matvec",
     "rmatvec",
+    "matvec_ps",
+    "rmatvec_ps",
+    "psum_if_sharded",
     "xdot",
     "rdot",
     "xmatdot",
@@ -140,10 +157,23 @@ class DeviceBucket:
 
 @dataclass(frozen=True)
 class DeviceProblem:
-    """Device-side problem, unsharded.  ``b`` keeps the shape the user gave:
-    (m,) for one right-hand side or (S, m) for S scenarios.  ``perm`` follows
-    the partition the layout solves under: the banded layout regroups the
-    blocks by row window, and extraction maps back through ``perm`` alone."""
+    """Device-side problem.  ``b`` keeps the shape the user gave: (m,) for
+    one right-hand side or (S, m) for S scenarios.  ``perm`` follows the
+    partition the layout solves under: the banded layout regroups the blocks
+    by row window, and extraction maps back through ``perm`` alone.
+
+    A sharded problem is one rank's slice, and two optional process groups
+    say how it is split (the counterparts of the reference's ``col_axis`` and
+    ``row_axis``):
+
+      col_group — A's columns (and x) split by block: A x partials and
+                  x-space inner products are summed over it;
+      row_group — A's rows (and r) split: A^T r partials and r-space inner
+                  products are summed over it.
+
+    Either, both or neither may be set; every collective of a solver step
+    goes through ``matvec_ps``/``rmatvec_ps``/``xdot``/``rdot``/``xmatdot``/
+    ``psum_if_sharded``.  ``n_user`` and ``num_rows`` are global."""
 
     A: DeviceMatrix
     b: torch.Tensor  # (m,) single scenario or (S, m)
@@ -153,6 +183,12 @@ class DeviceProblem:
     num_rows: int
     row_perm: Optional[torch.Tensor] = None  # (m,) original row id per
     # device-row position (set when row-nnz bucketing permuted the rows)
+    col_group: Optional[object] = None  # process group over A's column shards
+    row_group: Optional[object] = None  # process group over A's row shards
+
+    @property
+    def sharded(self) -> bool:
+        return self.col_group is not None or self.row_group is not None
 
     @property
     def n_pf(self) -> int:
@@ -166,16 +202,23 @@ class DeviceProblem:
 # ---------------- preparation (host side, numpy) ----------------
 
 
-def build_pf_perm(part: BlockPartition) -> np.ndarray:
-    """PF column order: bucket-major, row-major, slot-minor.
+def build_pf_perm(part: BlockPartition, n_shards: int = 1) -> np.ndarray:
+    """PF column order: device-major, bucket-minor, row-major, slot-minor.
 
     Returns (n_pf,) int32: the user-flat column index of each PF slot, or -1
-    for padding slots.
+    for padding slots.  Requires every bucket's row count to divide n_shards.
     """
-    chunks = [
-        np.where(b.mask > 0, b.pad_to_flat, -1).astype(np.int32).reshape(-1)
-        for b in part.buckets
-    ]
+    chunks = []
+    for d in range(n_shards):
+        for b in part.buckets:
+            Bk = b.num_blocks
+            if Bk % n_shards:
+                raise ValueError(
+                    f"bucket with {Bk} rows not divisible by n_shards={n_shards}; "
+                    f"rebuild the partition with block_multiple={n_shards}")
+            lo, hi = d * Bk // n_shards, (d + 1) * Bk // n_shards
+            real = b.mask[lo:hi] > 0
+            chunks.append(np.where(real, b.pad_to_flat[lo:hi], -1).astype(np.int32).reshape(-1))
     perm = np.concatenate(chunks)
     assert perm.size == part.padded_size
     return perm
@@ -231,32 +274,49 @@ def _build_row_ell_bucketed(rows_pf, vals_pf, num_rows: int):
     return row_perm, tuple(mv_cols), tuple(mv_vals)
 
 
-def _build_row_ell(rows_pf, vals_pf, num_rows: int):
-    """Build the row-oriented (gather) ELL copy from PF column-oriented data.
-
-    rows_pf/vals_pf: (n_pf, k) with zeros on padding.  Returns
-    (mv_cols, mv_vals) of shape (1, m, kr) with PF column indices, or
-    (None, None) if kr would exceed ROW_ELL_MAX_K.  The leading axis of
-    length 1 is the reference's shard axis at n_shards = 1.
-    """
+def _ell_groups(keys, idx, vals, num_groups: int, width: int):
+    """``group_ell`` padded to ``width`` slots: one shard's slice of an encode
+    whose width is set by every shard."""
     from ..native import group_ell
 
+    cols, out = group_ell(keys, idx, vals, num_groups)
+    pad = width - cols.shape[1]
+    if pad > 0:
+        cols = np.pad(cols, ((0, 0), (0, pad)))
+        out = np.pad(out, ((0, 0), (0, pad)))
+    return cols, out
+
+
+def _build_row_ell(rows_pf, vals_pf, num_rows: int, n_shards: int = 1, shard: int = 0):
+    """Build the row-oriented (gather) ELL copy from PF column-oriented data.
+
+    rows_pf/vals_pf: (n_pf, k) with zeros on padding.  Returns the copy of
+    column shard ``shard`` of ``n_shards`` as (mv_cols, mv_vals) of shape
+    (1, m, kr), with column indices LOCAL to the shard, or (None, None) if
+    any (shard, row) would exceed ROW_ELL_MAX_K (a popular row split across
+    shards is still fine).  kr is the widest (shard, row) of all shards, so
+    the slice equals the reference's (n_shards, m, kr) array at ``shard``.
+    """
     n_pf, k = rows_pf.shape
+    n_loc = n_pf // n_shards
     nz = vals_pf != 0
     if not nz.any():
         return (
             np.zeros((1, num_rows, 1), np.int32),
             np.zeros((1, num_rows, 1), vals_pf.dtype),
         )
-    pf_pos = np.broadcast_to(np.arange(n_pf)[:, None], (n_pf, k))[nz].astype(np.int32)
-    key = rows_pf[nz].astype(np.int64)
+    pf_pos = np.broadcast_to(np.arange(n_pf)[:, None], (n_pf, k))[nz]
+    r = rows_pf[nz].astype(np.int64)
     v = vals_pf[nz]
-    # reject on the per-row width before group_ell allocates the (G, W) arrays
-    if np.bincount(key, minlength=num_rows).max() > ROW_ELL_MAX_K:
+    sh = pf_pos // n_loc
+    # reject on the per-(shard, row) width before group_ell allocates (G, W)
+    width = int(np.bincount(sh * num_rows + r, minlength=n_shards * num_rows).max())
+    if width > ROW_ELL_MAX_K:
         return None, None
-    mv_cols, mv_vals = group_ell(key, pf_pos, v, num_rows)
-    kr = mv_cols.shape[1]
-    return mv_cols.reshape(1, num_rows, kr), mv_vals.reshape(1, num_rows, kr)
+    mine = sh == shard
+    local = (pf_pos[mine] - shard * n_loc).astype(np.int32)
+    mv_cols, mv_vals = _ell_groups(r[mine], local, v[mine], num_rows, width)
+    return mv_cols.reshape(1, num_rows, width), mv_vals.reshape(1, num_rows, width)
 
 
 def _build_col_ell_bucketed(rows_pf, vals_pf, max_groups: int = 6):
@@ -310,6 +370,66 @@ def _build_col_ell_bucketed(rows_pf, vals_pf, max_groups: int = 6):
     return tuple(rt_rows), tuple(rt_vals), rank.astype(np.int32), n_zero
 
 
+def _nonzeros(rows_pf, vals_pf):
+    """(pf position int64, row int64, value) of every nonzero, column-major."""
+    n_pf, k = rows_pf.shape
+    nz = vals_pf != 0
+    pf_pos = np.broadcast_to(np.arange(n_pf)[:, None], (n_pf, k))[nz].astype(np.int64)
+    return pf_pos, rows_pf[nz].astype(np.int64), vals_pf[nz]
+
+
+def _width(keys, num_groups: int) -> int:
+    return max(int(np.bincount(keys, minlength=num_groups).max()) if keys.size else 0, 1)
+
+
+def _build_ell_row_sharded(rows_pf, vals_pf, num_rows: int, nr: int, shard: int):
+    """Row shard ``shard`` of a PF column-ELL re-encoded into ``nr`` row
+    shards (both orientations); ``num_rows`` must divide ``nr``.  Returns
+
+      rows/vals:       (n_pf, ks) — the shard's column-ELL, LOCAL row ids
+      mv_cols/mv_vals: (1, m_loc, kr) — its row-ELL, global PF columns
+
+    with ks and kr the widths of the whole encode (the reference's
+    ``(nr, ...)`` arrays sliced at ``shard``)."""
+    n_pf = rows_pf.shape[0]
+    assert num_rows % nr == 0
+    m_loc = num_rows // nr
+    pf_pos, r, v = _nonzeros(rows_pf, vals_pf)
+    sh, local_r = r // m_loc, r % m_loc
+    ks = _width(sh * n_pf + pf_pos, nr * n_pf)
+    kr = _width(sh * m_loc + local_r, nr * m_loc)
+    mine = sh == shard
+    rows, vals = _ell_groups(pf_pos[mine], local_r[mine].astype(np.int32), v[mine], n_pf, ks)
+    mv_cols, mv_vals = _ell_groups(local_r[mine], pf_pos[mine].astype(np.int32), v[mine],
+                                   m_loc, kr)
+    return rows, vals, mv_cols[None], mv_vals[None]
+
+
+def _build_ell_2d(rows_pf, vals_pf, num_rows: int, nr: int, nc: int, shard: tuple):
+    """Tile ``shard = (row shard, column shard)`` of a PF column-ELL
+    re-encoded into an (nr x nc) shard grid — the 2-D sharded product: each
+    rank owns one tile of A and computes its partial of both products
+    locally; A x partials are summed over the column shards, A^T r partials
+    over the row shards.  Returns
+
+      rows/vals:       (n_loc, ks) — column orientation, LOCAL rows
+      mv_cols/mv_vals: (1, m_loc, kr) — row orientation, LOCAL columns
+    """
+    n_pf = rows_pf.shape[0]
+    assert n_pf % nc == 0 and num_rows % nr == 0
+    n_loc, m_loc = n_pf // nc, num_rows // nr
+    pf_pos, r, v = _nonzeros(rows_pf, vals_pf)
+    tile = (r // m_loc) * nc + pf_pos // n_loc
+    local_r, local_c = r % m_loc, pf_pos % n_loc
+    ks = _width(tile * n_loc + local_c, nr * nc * n_loc)
+    kr = _width(tile * m_loc + local_r, nr * nc * m_loc)
+    mine = tile == shard[0] * nc + shard[1]
+    rows, vals = _ell_groups(local_c[mine], local_r[mine].astype(np.int32), v[mine], n_loc, ks)
+    mv_cols, mv_vals = _ell_groups(local_r[mine], local_c[mine].astype(np.int32), v[mine],
+                                   m_loc, kr)
+    return rows, vals, mv_cols[None], mv_vals[None]
+
+
 def _np_float(dtype: torch.dtype) -> np.dtype:
     """Host staging buffers match the requested device precision: staging
     through float32 would silently quantize a float64 prepare()."""
@@ -319,15 +439,22 @@ def _np_float(dtype: torch.dtype) -> np.dtype:
 def to_device_matrix(
     M, perm: np.ndarray, dtype=torch.float32, col_scale=None,
     row_bucket: bool = False, device="cuda", _out: Optional[dict] = None,
+    n_shards: int = 1, row_shards: int = 1, shard: tuple = (0, 0),
 ) -> "DeviceMatrix":
     """Move a host matrix to device with PF column permutation/padding.
 
     ``col_scale`` (N,) divides each user column (block equilibration).
-    ``row_bucket=True`` (EllMatrix only) permutes rows by nnz count into
-    power-of-two width groups — the caller must permute b with the
-    ``row_perm`` stashed into ``_out``."""
+    ``row_bucket=True`` (unsharded EllMatrix only) permutes rows by nnz count
+    into power-of-two width groups — the caller must permute b with the
+    ``row_perm`` stashed into ``_out``.
+
+    Sharded (``n_shards`` column shards of the device-major ``perm``,
+    ``row_shards`` row shards): only the tile ``shard = (row shard, column
+    shard)`` is built and uploaded.  ELL A is re-encoded per tile when its
+    rows are sharded; the rows must divide ``row_shards`` (the caller pads)."""
     dev = resolve_device(device)
     np_dtype = _np_float(dtype)
+    rsh, csh = shard
 
     def fl(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
@@ -335,20 +462,34 @@ def to_device_matrix(
     def ix(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32, device=dev)
 
+    if row_shards > 1 and M.shape[0] % row_shards:
+        raise ValueError(f"num_rows={M.shape[0]} not divisible by row_shards={row_shards}; "
+                         "pad the instance rows first")
+    if isinstance(M, DenseMatrix):
+        n_loc, m_loc = perm.size // n_shards, M.shape[0] // row_shards
+        perm_loc = perm[csh * n_loc:(csh + 1) * n_loc]
+        sel = perm_loc >= 0
+        data = np.zeros((m_loc, n_loc), dtype=np_dtype)
+        cols = np.asarray(M.data)[rsh * m_loc:(rsh + 1) * m_loc][:, perm_loc[sel]]
+        data[:, sel] = cols if col_scale is None else cols / np.asarray(col_scale)[perm_loc[sel]]
+        return DeviceDense(data=fl(data))
     sel = perm >= 0
     cs = None if col_scale is None else np.asarray(col_scale)[perm[sel]]
-    if isinstance(M, DenseMatrix):
-        data = np.zeros((M.shape[0], perm.size), dtype=np_dtype)
-        cols = np.asarray(M.data)[:, perm[sel]]
-        data[:, sel] = cols if cs is None else cols / cs
-        return DeviceDense(data=fl(data))
     if isinstance(M, EllMatrix):
         rows = np.zeros((perm.size, M.k), dtype=np.int32)
         vals = np.zeros((perm.size, M.k), dtype=np_dtype)
         rows[sel] = np.asarray(M.rows)[perm[sel]]
         v = np.asarray(M.vals)[perm[sel]]
         vals[sel] = v if cs is None else v / cs[:, None]
-        if row_bucket:
+        if row_shards > 1:
+            if n_shards > 1:  # 2-D (row x col) shard grid
+                r, v2, mc, mv = _build_ell_2d(rows, vals, M.num_rows, row_shards, n_shards,
+                                              shard)
+            else:
+                r, v2, mc, mv = _build_ell_row_sharded(rows, vals, M.num_rows, row_shards, rsh)
+            return DeviceEll(rows=ix(r), vals=fl(v2), mv_cols=ix(mc), mv_vals=fl(mv),
+                             num_rows=M.num_rows // row_shards)
+        if row_bucket and n_shards == 1:
             row_perm, mvc, mvv = _build_row_ell_bucketed(rows, vals, M.num_rows)
             if row_perm is not None:
                 rank = np.empty(M.num_rows, np.int64)
@@ -368,15 +509,20 @@ def to_device_matrix(
                     rt_inv=None if rt_inv is None else ix(rt_inv),
                     rt_zeros=n_zero,
                 )
-        mv_cols, mv_vals = _build_row_ell(rows, vals, M.num_rows)
+        mv_cols, mv_vals = _build_row_ell(rows, vals, M.num_rows, n_shards, csh)
+        n_loc = perm.size // n_shards
         return DeviceEll(
-            rows=ix(rows),
-            vals=fl(vals),
+            rows=ix(rows[csh * n_loc:(csh + 1) * n_loc]),
+            vals=fl(vals[csh * n_loc:(csh + 1) * n_loc]),
             mv_cols=None if mv_cols is None else ix(mv_cols),
             mv_vals=None if mv_vals is None else fl(mv_vals),
             num_rows=M.num_rows,
         )
     if isinstance(M, VStackMatrix):
+        if n_shards > 1 or row_shards > 1:
+            raise NotImplementedError(
+                "a sharded stacked operator [A; s C] is not ported yet (later slice: "
+                "distribution, the equality-constrained mesh branches)")
         # each part keeps its own row order (no row-nnz bucketing: the
         # stacked right-hand side is [b; b_bottom] as the caller builds it)
         scale, bottom = 1.0, M.bottom
@@ -422,20 +568,22 @@ def block_scales(problem: Problem) -> np.ndarray:
     return c
 
 
-def _device_buckets(part: BlockPartition, c: np.ndarray, dtype, dev) -> tuple:
-    """The partition's buckets on the device; ``c`` are the per-block scales."""
-    return tuple(
-        DeviceBucket(
-            mask=torch.as_tensor(b.mask, dtype=dtype, device=dev),
-            sizes=torch.as_tensor(b.sizes, dtype=torch.int32, device=dev),
-            radius=torch.as_tensor(
-                np.where(b.block_ids >= 0, c[np.maximum(b.block_ids, 0)], 1.0),
-                dtype=dtype, device=dev,
-            ),
+def _device_buckets(part: BlockPartition, c: np.ndarray, dtype, dev, n_shards: int = 1,
+                    shard: int = 0) -> tuple:
+    """The partition's buckets on the device (column shard ``shard`` of
+    ``n_shards``: its rows of every bucket); ``c`` are the per-block scales."""
+    out = []
+    for b in part.buckets:
+        lo, hi = shard * b.num_blocks // n_shards, (shard + 1) * b.num_blocks // n_shards
+        ids = b.block_ids[lo:hi]
+        out.append(DeviceBucket(
+            mask=torch.as_tensor(b.mask[lo:hi], dtype=dtype, device=dev),
+            sizes=torch.as_tensor(b.sizes[lo:hi], dtype=torch.int32, device=dev),
+            radius=torch.as_tensor(np.where(ids >= 0, c[np.maximum(ids, 0)], 1.0),
+                                   dtype=dtype, device=dev),
             width=b.width,
-        )
-        for b in part.buckets
-    )
+        ))
+    return tuple(out)
 
 
 def _scales(problem: Problem, equilibrate: bool):
@@ -447,17 +595,37 @@ def _scales(problem: Problem, equilibrate: bool):
     return np.ones(part.num_blocks), None
 
 
+def _local_b(b: np.ndarray, scenarios, row_shards: int = 1, rsh: int = 0) -> np.ndarray:
+    """This rank's right-hand sides: its scenarios and its row segment."""
+    if scenarios is not None:
+        b = b[scenarios]
+    if row_shards > 1:
+        m_loc = b.shape[-1] // row_shards
+        b = b[..., rsh * m_loc:(rsh + 1) * m_loc]
+    return np.ascontiguousarray(b)
+
+
 def _prepare_banded(
     problem: Problem, dtype, equilibrate: bool, force: bool, dev: torch.device,
     fit_threshold: float = 0.6, band_budget_bytes: int = 2 << 30,
+    n_shards: int = 1, shard: int = 0, col_group=None, scenarios=None,
+    _out: Optional[dict] = None,
 ) -> Optional[DeviceProblem]:
     """Try the banded-split layout (ops/banded.py): re-orders blocks by row
     window, builds per-bucket band tensors and a sparse residual.  Returns the
     DeviceProblem — whose ``perm`` and buckets follow the VALUE-GROUPED
-    partition — or None when the instance is not bandable enough (fit
-    fraction below threshold) or the band tensors would exceed the memory
-    budget; the caller then falls back to the gather layout.  ``b`` stays in
-    the user's row order: the row-nnz bucketing does not apply here."""
+    partition, stashed in ``_out["partition"]`` — or None when the instance is
+    not bandable enough (fit fraction below threshold) or the band tensors
+    would exceed the memory budget; the caller then falls back to the gather
+    layout.  ``b`` stays in the user's row order: the row-nnz bucketing does
+    not apply here.
+
+    ``n_shards > 1`` shards the band tensors along the group axis: the
+    ladder page count pads to a multiple of n_shards, so shard d owns
+    gl = pages/n_shards contiguous groups = a contiguous block range = a
+    contiguous row window, starting at ladder page d * gl.  Its products
+    return full-m partials, summed over ``col_group``; the residual rides the
+    column-sharded dual-ELL."""
     part = problem.partition
     A0: EllMatrix = problem.A
     # per-block window page: min nonzero row page over the block's columns
@@ -466,8 +634,9 @@ def _prepare_banded(
     col_min = np.where(nzmask, rows_h, np.iinfo(np.int32).max).min(axis=1)
     col_max = np.where(nzmask, rows_h, -1).max(axis=1)
     offsets = np.concatenate([[0], np.cumsum(part.sizes)])[:-1]
-    Mp = -(-A0.num_rows // PAGE)
-    block_page = np.clip(np.minimum.reduceat(col_min, offsets) // PAGE, 0, Mp - 1)
+    Mp_real = -(-A0.num_rows // PAGE)
+    Mp = n_shards * (-(-Mp_real // n_shards))  # pad the ladder to the shard count
+    block_page = np.clip(np.minimum.reduceat(col_min, offsets) // PAGE, 0, Mp_real - 1)
 
     # cheap pre-screens BEFORE building the grouped partition (the full
     # attempt is host work that instances which cannot qualify should not pay):
@@ -495,6 +664,7 @@ def _prepare_banded(
     part2 = BlockPartition.from_sizes(part.sizes, order_key=block_page, groups=Mp,
                                       group_cap_quantile=cap_q)
 
+    # bucket-major perm for the band build (groups ascending per bucket)
     perm = build_pf_perm(part2)
     c, col_scale = _scales(problem, equilibrate)
     np_dtype = _np_float(dtype)
@@ -512,6 +682,16 @@ def _prepare_banded(
     )
     if fit < fit_threshold and not force:
         return None
+    if n_shards > 1:
+        # device-major reindex of the residual/perm: device d's chunk is
+        # [bucket0 rows d*L0/n..(d+1)*L0/n, bucket1 rows ..., ...]
+        seg_off = np.concatenate([[0], np.cumsum(seg_lens)])
+        bm_of_dm = np.concatenate([
+            np.arange(seg_off[i] + d * (L // n_shards), seg_off[i] + (d + 1) * (L // n_shards))
+            for d in range(n_shards) for i, L in enumerate(seg_lens)])
+        perm, res_rows, res_vals = perm[bm_of_dm], res_rows[bm_of_dm], res_vals[bm_of_dm]
+    n_loc, gl = perm.size // n_shards, Mp // n_shards
+    mine = slice(shard * n_loc, (shard + 1) * n_loc)
 
     def fl(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
@@ -521,11 +701,17 @@ def _prepare_banded(
 
     resid = None
     if (res_vals != 0).any():
-        mv_cols, mv_vals = _build_row_ell(res_rows, res_vals, A0.num_rows)
-        rt_r, rt_v, rt_inv, n_zero = _build_col_ell_bucketed(res_rows, res_vals)
+        mv_cols, mv_vals = _build_row_ell(res_rows, res_vals, A0.num_rows, n_shards, shard)
+        if n_shards == 1:
+            rt_r, rt_v, rt_inv, n_zero = _build_col_ell_bucketed(res_rows, res_vals)
+        else:
+            # col-nnz bucketing reorders PF columns globally: the sharded
+            # residual's A^T r takes the plain local (n_loc, k) gather
+            rt_r = rt_v = rt_inv = None
+            n_zero = 0
         resid = DeviceEll(
-            rows=ix(res_rows),
-            vals=fl(res_vals),
+            rows=ix(res_rows[mine]),
+            vals=fl(res_vals[mine]),
             mv_cols=None if mv_cols is None else ix(mv_cols),
             mv_vals=None if mv_vals is None else fl(mv_vals),
             num_rows=A0.num_rows,
@@ -535,22 +721,26 @@ def _prepare_banded(
             rt_zeros=n_zero,
         )
     A = DeviceBanded(
-        bands=tuple(fl(bd) for bd in bands),
+        bands=tuple(fl(bd[shard * gl:(shard + 1) * gl]) for bd in bands),
         resid=resid,
         num_rows=A0.num_rows,
         wpages=wpages,
         back=back,
-        n_pf=int(perm.size),
-        seg_lens=tuple(seg_lens),
+        n_pf=n_loc,
+        seg_lens=tuple(L // n_shards for L in seg_lens),
         pages=Mp,
+        page_off=shard * gl,
     )
+    if _out is not None:
+        _out["partition"] = part2
     return DeviceProblem(
         A=A,
-        b=fl(np.asarray(problem.b)),
-        buckets=_device_buckets(part2, c, dtype, dev),
-        perm=ix(perm),
+        b=fl(_local_b(np.asarray(problem.b), scenarios)),
+        buckets=_device_buckets(part2, c, dtype, dev, n_shards, shard),
+        perm=ix(perm[mine]),
         n_user=part.n_flat,
         num_rows=A0.num_rows,
+        col_group=col_group,
     )
 
 
@@ -560,6 +750,13 @@ def prepare(
     equilibrate: bool = True,
     layout: str = "auto",  # auto | banded | gather
     device="cuda",
+    n_shards: int = 1,
+    row_shards: int = 1,
+    shard: tuple = (0, 0),
+    col_group=None,
+    row_group=None,
+    scenarios: Optional[slice] = None,
+    _out: Optional[dict] = None,
 ) -> DeviceProblem:
     """Move a host Problem into the device-side PF layout.
 
@@ -572,6 +769,17 @@ def prepare(
     any other A; ``layout="gather"`` never tries it.  A stacked
     ``VStackMatrix`` always takes the gather layout.
 
+    Sharded (``parallel/sharding.py`` calls this): ``n_shards`` column shards
+    (every bucket's rows must divide it: rebuild the partition with
+    ``block_multiple``), ``row_shards`` row shards (A's rows must divide it),
+    and the tile ``shard = (row shard, column shard)`` this rank holds;
+    ``scenarios`` slices b's scenario axis; ``col_group``/``row_group`` go
+    into the DeviceProblem for its collectives.  The routing is the
+    reference's: no row-nnz bucketing under any sharding, and the banded
+    attempt only without row sharding.  When the band is taken, the
+    value-grouped partition it solves under is stashed in
+    ``_out["partition"]``.
+
     A ``Problem`` with equality constraints (``C``) is not prepared here:
     ``solve()`` runs it through the augmented-Lagrangian loop, which prepares
     the stacked problem ``[A; sqrt(rho) C]`` (whose ``C`` is ``None``)."""
@@ -583,34 +791,42 @@ def prepare(
             "pass it to solve(), which runs the augmented-Lagrangian loop "
             "(solvers.eq_constrained) on the stacked operator [A; sqrt(rho) C]")
     dev = resolve_device(device)
+    col_sharded = n_shards > 1 or col_group is not None
+    row_sharded = row_shards > 1 or row_group is not None
+    rsh, csh = shard
     b_host = np.asarray(problem.b)
     num_scenarios = int(b_host.shape[0]) if b_host.ndim == 2 else 1
     if layout == "banded" or (layout == "auto" and num_scenarios < 16):
-        if isinstance(problem.A, EllMatrix):
+        if isinstance(problem.A, EllMatrix) and not row_sharded:
             dp = _prepare_banded(problem, dtype, equilibrate, force=(layout == "banded"),
-                                 dev=dev)
+                                 dev=dev, n_shards=n_shards, shard=csh, col_group=col_group,
+                                 scenarios=scenarios, _out=_out)
             if dp is not None:
                 return dp
         elif layout == "banded":
-            raise ValueError("layout='banded' requires an EllMatrix instance")
+            raise ValueError("layout='banded' requires an EllMatrix instance and column "
+                             "(block) or no sharding: row sharding has no banded form")
     part = problem.partition
-    perm = build_pf_perm(part)
+    perm = build_pf_perm(part, n_shards)
     c, col_scale = _scales(problem, equilibrate)
-    buckets = _device_buckets(part, c, dtype, dev)
+    buckets = _device_buckets(part, c, dtype, dev, n_shards, csh)
     out_info: dict = {}
     A = to_device_matrix(
         problem.A, perm, dtype, col_scale,
-        row_bucket=isinstance(problem.A, EllMatrix), device=dev, _out=out_info,
+        row_bucket=isinstance(problem.A, EllMatrix) and not (col_sharded or row_sharded),
+        device=dev, _out=out_info, n_shards=n_shards, row_shards=row_shards, shard=shard,
     )
-    b = b_host
+    b = _local_b(b_host, scenarios, row_shards, rsh)
     if "row_perm" in out_info:
         # r lives in the nnz-sorted row order from here on
         b = b[..., out_info["row_perm"]]
+    n_loc = perm.size // n_shards
     return DeviceProblem(
         A=A,
         b=torch.as_tensor(np.ascontiguousarray(b), dtype=dtype, device=dev),
         buckets=buckets,
-        perm=torch.as_tensor(perm, dtype=torch.int32, device=dev),
+        perm=torch.as_tensor(perm[csh * n_loc:(csh + 1) * n_loc], dtype=torch.int32,
+                             device=dev),
         n_user=part.n_flat,
         num_rows=problem.A.shape[0],
         row_perm=(
@@ -618,6 +834,8 @@ def prepare(
             if "row_perm" in out_info
             else None
         ),
+        col_group=col_group,
+        row_group=row_group,
     )
 
 
@@ -803,20 +1021,52 @@ def rmatvec(A: DeviceMatrix, r: torch.Tensor) -> torch.Tensor:
     return _batched(lambda rt: _gather_dot_t(A.vals, A.rows, rt), r)
 
 
+def _psum(v: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``v`` over the ranks of ``group`` (in place; a new contiguous
+    tensor if ``v`` was a view), or ``v`` itself without a group."""
+    if group is None:
+        return v
+    v = v.contiguous()
+    dist.all_reduce(v, group=group)
+    return v
+
+
+def psum_if_sharded(dp: DeviceProblem, v: torch.Tensor) -> torch.Tensor:
+    """Sum a per-rank partial over the column shards (no-op unsharded)."""
+    return _psum(v, dp.col_group)
+
+
+def matvec_ps(dp: DeviceProblem, x: torch.Tensor) -> torch.Tensor:
+    """A @ x assembled across the column (block) shards: local partial +
+    all-reduce over ``col_group``.  Under row sharding the result is this
+    rank's row segment of r (no collective).  The residual collective of the
+    sharded step."""
+    return _psum(matvec(dp.A, x), dp.col_group)
+
+
+def rmatvec_ps(dp: DeviceProblem, r: torch.Tensor) -> torch.Tensor:
+    """A^T @ r assembled across the row shards: local partial + all-reduce
+    over ``row_group``.  Under column-only sharding it is block-local (r is
+    replicated)."""
+    return _psum(rmatvec(dp.A, r), dp.row_group)
+
+
 def xdot(dp: DeviceProblem, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Inner product of x-space (PF flat) vectors over the last axis: a
-    scalar for (n,) inputs, (S,) for (S, n)."""
-    return (a * b).sum(dim=-1)
+    scalar for (n,) inputs, (S,) for (S, n); summed over the column shards."""
+    return _psum((a * b).sum(dim=-1), dp.col_group)
 
 
 def rdot(dp: DeviceProblem, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Inner product of r-space vectors over the last axis."""
-    return (a * b).sum(dim=-1)
+    """Inner product of r-space vectors over the last axis; summed over the
+    row shards."""
+    return _psum((a * b).sum(dim=-1), dp.row_group)
 
 
 def xmatdot(dp: DeviceProblem, M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Batched x-space dots: (K, n) @ (n,) -> (K,), or per scenario
-    (S, K, n) @ (S, n) -> (S, K).  One batched product instead of K serial
-    dots (the L-BFGS compact form's history products), at full fp32: TF32 is
-    off package-wide, and reduced-precision passes break 1e-6 convergence."""
-    return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
+    (S, K, n) @ (S, n) -> (S, K), summed over the column shards like xdot.
+    One batched product instead of K serial dots (the L-BFGS compact form's
+    history products), at full fp32: TF32 is off package-wide, and
+    reduced-precision passes break 1e-6 convergence."""
+    return _psum(torch.matmul(M, v.unsqueeze(-1)).squeeze(-1), dp.col_group)

@@ -3,15 +3,17 @@
 The objective 0.5||Ax-b||^2 admits a closed-form exact step along any
 direction d:  t* = -(g.d)/||A d||^2, clipped to the feasible segment.
 Counterpart of ``bsls_tpu/ops/quadratic.py``; with a leading scenario axis
-every scalar here is an (S,) tensor, one value per scenario.
+every scalar here is an (S,) tensor, one value per scenario.  On a sharded
+problem the products and inner products are the collective ones of
+``ops/layout.py`` (``matvec_ps``, ``rmatvec_ps``, ``rdot``).
 """
 from __future__ import annotations
 
 import torch
 
 from .layout import (
-    DeviceBanded, DeviceDense, DeviceEll, DeviceProblem, DeviceVStack, flat_to_padded, matvec,
-    rdot, rmatvec,
+    DeviceBanded, DeviceDense, DeviceEll, DeviceProblem, DeviceVStack, _psum, flat_to_padded,
+    matvec_ps, rdot, rmatvec_ps,
 )
 
 __all__ = [
@@ -41,13 +43,15 @@ def _diag_flat(A) -> torch.Tensor:
 
 def diag_quad(dp: DeviceProblem) -> tuple:
     """diag(A^T A) as padded buckets (squared column norms in the PF layout;
-    the per-block diagonal curvature)."""
-    return flat_to_padded(dp, _diag_flat(dp.A))
+    the per-block diagonal curvature).  Column entries are local under column
+    sharding; under row sharding the per-row-shard partials are summed."""
+    return flat_to_padded(dp, _psum(_diag_flat(dp.A), dp.row_group))
 
 
 def residual(dp: DeviceProblem, x_flat: torch.Tensor, b=None) -> torch.Tensor:
-    """r = A x - b."""
-    return matvec(dp.A, x_flat) - (dp.b if b is None else b)
+    """r = A x - b; under column sharding the partial products are summed,
+    under row sharding this is the local row segment."""
+    return matvec_ps(dp, x_flat) - (dp.b if b is None else b)
 
 
 def objective_from_residual(dp: DeviceProblem, r: torch.Tensor) -> torch.Tensor:
@@ -55,7 +59,7 @@ def objective_from_residual(dp: DeviceProblem, r: torch.Tensor) -> torch.Tensor:
 
 
 def grad_flat(dp: DeviceProblem, r: torch.Tensor) -> torch.Tensor:
-    return rmatvec(dp.A, r)
+    return rmatvec_ps(dp, r)
 
 
 def exact_step(dp: DeviceProblem, g_dot_d: torch.Tensor, Ad: torch.Tensor,

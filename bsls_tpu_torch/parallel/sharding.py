@@ -1,0 +1,440 @@
+"""Sharded solve over a ``torch.distributed`` mesh: every rank runs the
+solver's own steps on its slice of the problem.
+
+Layout (``parallel/mesh.py`` axes; each rank holds and uploads one slice):
+
+  column (block) sharding, ``shard_problem``:
+    * bucket arrays (Bk, w)    rows split over 'block'   x, masks, radii
+    * dense A (m, n_pf)        columns over 'block'
+    * ELL rows/vals (n_pf, k)  columns over 'block', row copy with local ids
+    * the banded layout        band groups over 'block' (``ops/banded.py``)
+    * b (S, m)                 scenarios over 'scenario'
+    * residual r               replicated over 'block' (assembled by an
+                               all-reduce of the partial products)
+  row sharding, ``shard_problem_rows``: A's rows and r split over 'block', x
+    replicated; A^T r and r-space inner products all-reduce.
+  2-D, ``shard_problem_2d``: tile (row shard, column shard) of A per rank; A x
+    partials all-reduce over 'block', A^T r partials over 'row'.
+
+Each rank computes its partial A_k x_k; the residual assembles with one
+all-reduce over 'block' per product, and A^T r is then block-local.  Line
+search and gap inner products all-reduce likewise: the process groups in the
+DeviceProblem make ``matvec_ps``/``xdot``/... collective, so the SAME solver
+step functions run sharded and unsharded, and ``solve_sharded`` runs the same
+chunk loop as ``solve`` (``solvers/base.py::run_chunk_loop``).  Its one
+readback per chunk is an all-gather of (f, gap) over 'scenario', so every
+rank's stop rule sees every scenario and every rank stops at the same chunk.
+
+Counterpart of ``bsls_tpu/parallel/sharding.py``, where one controller
+``shard_map``s the steps over a ``jax.sharding.Mesh``.  What it does not
+take: its second chunk loop with an adaptive sync cadence (a workaround for
+that platform's readback latency), and the stacked operator of the
+equality-constrained path (a later slice).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import replace
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..models.partition import BlockPartition
+from ..models.problem import DenseMatrix, EllMatrix, Problem, VStackMatrix
+from ..ops import layout as L
+from .mesh import BLOCK_AXIS, ROW_AXIS, SCENARIO_AXIS
+
+__all__ = ["shard_problem", "shard_problem_rows", "shard_problem_2d", "inject_sharded",
+           "to_host", "extract_sharded", "leaf_layout", "solve_sharded"]
+
+
+# ---------------- problem sharding ----------------
+
+
+def _rhs_2d(problem: Problem, mesh) -> np.ndarray:
+    b = np.asarray(problem.b)
+    if b.ndim == 1:
+        b = b[None, :]
+    ns = mesh.shape[SCENARIO_AXIS]
+    if b.shape[0] % ns:
+        raise ValueError(f"num scenarios {b.shape[0]} not divisible by scenario axis {ns}")
+    return b
+
+
+def _my_scenarios(b: np.ndarray, mesh) -> slice:
+    per = b.shape[0] // mesh.shape[SCENARIO_AXIS]
+    s = mesh.coords[SCENARIO_AXIS]
+    return slice(s * per, (s + 1) * per)
+
+
+def _block_partition(problem: Problem, nb: int) -> Problem:
+    """Rebuild the partition so every bucket's rows divide ``nb`` (dummy
+    blocks pad it); a user-flat x is unchanged by this."""
+    part = problem.partition
+    if any(bk.num_blocks % nb for bk in part.buckets):
+        part = BlockPartition.from_sizes(part.sizes, block_multiple=nb)
+        problem = replace(problem, partition=part)
+    return problem
+
+
+def _pad_rows(problem: Problem, nr: int, b: np.ndarray, what: str) -> Problem:
+    """Zero-pad A's rows and b so that ``nr`` divides them (zero rows add
+    nothing to a least-squares residual)."""
+    A, m = problem.A, problem.A.shape[0]
+    pad = (-m) % nr
+    if isinstance(A, VStackMatrix):
+        raise NotImplementedError(
+            f"{what} of a stacked operator [A; s C] is not ported yet (later slice: "
+            "distribution, the equality-constrained mesh branches)")
+    if isinstance(A, DenseMatrix):
+        if pad:
+            A = DenseMatrix(np.concatenate(
+                [A.data, np.zeros((pad, A.data.shape[1]), A.data.dtype)], axis=0))
+    elif isinstance(A, EllMatrix):
+        if pad:
+            A = EllMatrix(rows=A.rows, vals=A.vals, num_rows=m + pad)
+    else:
+        raise NotImplementedError(
+            f"{what} supports dense and ELL A, got {type(A)}. For bandable (corridor) "
+            "instances use block sharding with layout='banded': band groups own "
+            "advancing row windows, so a group shard already touches only its own "
+            "row pages")
+    if pad:
+        b = np.concatenate([b, np.zeros((b.shape[0], pad), b.dtype)], axis=1)
+    return replace(problem, A=A, b=b)
+
+
+def shard_problem(problem: Problem, mesh, dtype=torch.float32, equilibrate: bool = True,
+                  layout: str = "auto"):
+    """Prepare this rank's slice of a Problem, columns split over 'block'.
+
+    Rebuilds the partition so every bucket's rows divide the block axis and
+    lays A's columns out device-major.  Returns (dp, part) where
+    ``dp.col_group`` is the block group.  When the banded layout is
+    selected (``layout`` as in ``prepare``), ``part`` is the value-grouped
+    partition the band ladder solves under: extraction maps through it."""
+    nb = mesh.shape[BLOCK_AXIS]
+    problem = _block_partition(problem, nb)
+    b = _rhs_2d(problem, mesh)
+    problem = replace(problem, b=b)
+    out: dict = {}
+    dp = L.prepare(problem, dtype=dtype, equilibrate=equilibrate, layout=layout,
+                   device=mesh.device, n_shards=nb, shard=(0, mesh.coords[BLOCK_AXIS]),
+                   col_group=mesh.groups[BLOCK_AXIS], scenarios=_my_scenarios(b, mesh),
+                   _out=out)
+    return dp, out.get("partition", problem.partition)
+
+
+def shard_problem_rows(problem: Problem, mesh, dtype=torch.float32):
+    """Row-sharded preparation (tall A): A's ROWS and r are split over the
+    block axis, x is replicated.  Dense A is sliced by rows; ELL A is
+    re-encoded per shard in both orientations with local row ids, so each
+    rank gathers only from its own r segment and the A^T r partials
+    all-reduce.  Rows are zero-padded so the axis divides m.  A stacked
+    ``VStackMatrix`` (the equality-constrained operator) raises: its slice
+    is a later one."""
+    nr = mesh.shape[BLOCK_AXIS]
+    b = _rhs_2d(problem, mesh)
+    problem = _pad_rows(problem, nr, b, "row sharding")
+    b = np.asarray(problem.b)
+    dp = L.prepare(problem, dtype=dtype, layout="gather", device=mesh.device,
+                   row_shards=nr, shard=(mesh.coords[BLOCK_AXIS], 0),
+                   row_group=mesh.groups[BLOCK_AXIS], scenarios=_my_scenarios(b, mesh))
+    return dp, problem.partition
+
+
+def shard_problem_2d(problem: Problem, mesh, dtype=torch.float32):
+    """2-D (row x column) sharded preparation: every rank owns one tile of A
+    (ELL re-encoded per tile with local row AND local column ids; dense A
+    sliced).  Rows pad to the row axis; the partition pads to the block
+    axis."""
+    nr, nc = mesh.shape[ROW_AXIS], mesh.shape[BLOCK_AXIS]
+    problem = _block_partition(problem, nc)
+    b = _rhs_2d(problem, mesh)
+    problem = _pad_rows(problem, nr, b, "2-D sharding")
+    b = np.asarray(problem.b)
+    dp = L.prepare(problem, dtype=dtype, layout="gather", device=mesh.device,
+                   n_shards=nc, row_shards=nr,
+                   shard=(mesh.coords[ROW_AXIS], mesh.coords[BLOCK_AXIS]),
+                   col_group=mesh.groups[BLOCK_AXIS], row_group=mesh.groups[ROW_AXIS],
+                   scenarios=_my_scenarios(b, mesh))
+    return dp, problem.partition
+
+
+# ---------------- host side of the sharded solve ----------------
+
+
+def to_host(x: torch.Tensor, group=None, dim: int = 0) -> np.ndarray:
+    """A tensor split over ``group`` along ``dim`` -> the whole array, as
+    numpy, on every rank of the group.  Gathers CPU copies over the group's
+    CPU backend (gloo), so a gloo world on CUDA tensors works too; the
+    slices must have equal shapes (the layouts split evenly)."""
+    a = x.detach().cpu().contiguous()
+    if group is None:
+        return a.numpy()
+    parts = [torch.empty_like(a) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, a, group=group)
+    return torch.cat(parts, dim=dim).numpy()
+
+
+def _block_rows(b, bk, dp, mesh) -> slice:
+    """This rank's rows of bucket ``b``: split over 'block' unless A's rows
+    are what is split there (row sharding, x replicated)."""
+    n_loc = bk.mask.shape[0]
+    c = mesh.coords[BLOCK_AXIS] if dp.col_group is not None else 0
+    assert n_loc * (mesh.shape[BLOCK_AXIS] if dp.col_group is not None else 1) == b.num_blocks
+    return slice(c * n_loc, (c + 1) * n_loc)
+
+
+def inject_sharded(dp, part, x_user: np.ndarray, mesh):
+    """Inverse of ``extract_sharded``: (S, N) or (N,) user-flat x -> this
+    rank's padded bucket slices (equilibration-scaled), on its device."""
+    x_user = np.asarray(x_user, np.float64)
+    if x_user.ndim == 1:
+        x_user = x_user[None, :]
+    x_user = x_user[_my_scenarios(x_user, mesh)]
+    out = []
+    for b, bk in zip(part.buckets, dp.buckets):
+        rows = _block_rows(b, bk, dp, mesh)
+        radius = bk.radius.detach().cpu().numpy().astype(np.float64)
+        m = b.mask[rows].astype(bool)
+        vals = x_user[:, b.pad_to_flat[rows]] * radius[None, :, None]
+        arr = np.zeros((x_user.shape[0],) + m.shape)
+        arr[:, m] = vals[:, m]
+        out.append(torch.as_tensor(arr, dtype=dp.b.dtype, device=dp.device))
+    return tuple(out)
+
+
+def extract_sharded(dp, part, xp, mesh) -> np.ndarray:
+    """Host-side extraction for the sharded path: the (S, N) user-flat
+    solution, on every rank.
+
+    Uses the partition's own bucket->flat maps (bucket row order is
+    unchanged by sharding), NOT ``dp.perm``: the PF perm is device-major
+    while a bucket-wise concatenation is bucket-major, so a perm-based
+    extraction would scramble multi-bucket (ragged) problems."""
+    sgroup = mesh.groups[SCENARIO_AXIS]
+    out = None
+    for b, bk, x in zip(part.buckets, dp.buckets, xp):
+        local = x / torch.clamp(bk.radius, min=1e-30)[:, None]
+        if dp.col_group is not None:
+            local = torch.as_tensor(to_host(local, dp.col_group, dim=1))
+        vals = to_host(local, sgroup, dim=0)  # (S, Bk, w)
+        if out is None:
+            out = np.zeros((vals.shape[0], part.n_flat), vals.dtype)
+        m = b.mask.astype(bool)
+        out[:, b.pad_to_flat[m]] = vals[:, m]
+    return out
+
+
+def leaf_layout(state, dp, mesh) -> list:
+    """[global offset, global shape] of every leaf of a rank's solver state,
+    in the checkpoint's leaf order, from the state class's ``SHARD_KINDS``
+    (x: padded buckets, xflat: PF flat, xflat_hist: (S, M, n_pf) history,
+    r: residual, hist/gram/scalar: per scenario, bucket: (Bk, w) with no
+    scenario axis)."""
+    kinds = type(state).SHARD_KINDS
+    col = dp.col_group is not None
+    cols = (mesh.shape[BLOCK_AXIS], mesh.coords[BLOCK_AXIS]) if col else (1, 0)
+    if dp.row_group is None:
+        rows = (1, 0)
+    else:
+        ax = ROW_AXIS if col else BLOCK_AXIS
+        rows = (mesh.shape[ax], mesh.coords[ax])
+    scen = (mesh.shape[SCENARIO_AXIS], mesh.coords[SCENARIO_AXIS])
+    split_dims = {"x": {0: scen, 1: cols}, "xflat": {0: scen, 1: cols},
+                  "xflat_hist": {0: scen, 2: cols}, "r": {0: scen, 1: rows},
+                  "bucket": {0: cols}}
+    out = []
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if v is None:
+            continue
+        for leaf in v if isinstance(v, tuple) else (v,):
+            shape = list(leaf.shape) if isinstance(leaf, torch.Tensor) else []
+            off, full = [0] * len(shape), list(shape)
+            if shape:
+                for d, (n, c) in split_dims.get(kinds[f.name], {0: scen}).items():
+                    off[d], full[d] = c * shape[d], n * shape[d]
+            out.append([off, full])
+    return out
+
+
+# ---------------- the sharded solve ----------------
+
+
+def _resume(path: str, state, shard: dict):
+    """(state, iteration) from the newest checkpoint of which every rank holds
+    its file; (state, 0) where there is none.  Every rank lists its own files
+    and all take the same iteration, so a rank whose newest file is missing
+    (killed between the ranks' writes, or pruned by its own rotation) cannot
+    send the others another way.  A rank that cannot load its file makes
+    every rank raise, so no rank goes on alone into the warm-up's
+    collectives."""
+    from ..utils.checkpoint import checkpoint_files, load_state
+
+    world = dist.get_world_size()
+    mine = checkpoint_files(path, dist.get_rank() if world > 1 else None)
+    held = [None] * world
+    dist.all_gather_object(held, list(mine))
+    common = set(held[0]).intersection(*held[1:])
+    stamps = [k for k in common if k is not None]
+    if not stamps and None not in common:
+        return state, 0
+    try:
+        state, meta = load_state(mine[max(stamps) if stamps else None], state, shard=shard)
+        status = (int(meta.get("iteration", 0)), None)
+    except Exception as e:  # every rank hears of it below
+        status = (None, f"{type(e).__name__}: {e}")
+    statuses = [None] * world
+    dist.all_gather_object(statuses, status)
+    errors = [f"rank {r}: {err}" for r, (_, err) in enumerate(statuses) if err]
+    if errors:
+        raise ValueError(f"cannot resume from {path}: " + "; ".join(errors))
+    iterations = sorted({it for it, _ in statuses})
+    if len(iterations) > 1:
+        raise ValueError(f"cannot resume from {path}: the ranks' files hold iterations "
+                         f"{iterations}")
+    return state, iterations[0]
+
+
+def solve_sharded(
+    problem,
+    mesh,
+    method: str = "pgd",
+    tol: float = 1e-6,
+    max_iter: int = 10_000,
+    chunk: int = 100,
+    line_search: str = "exact",
+    step_size: float = 0.0,
+    dtype=torch.float32,
+    verbose: bool = False,
+    metrics=None,
+    checkpoint_path=None,
+    checkpoint_every: int = 0,
+    checkpoint_keep: int = 0,
+    resume: bool = False,
+    shard_rows: bool = False,
+    x0=None,
+    stop_rule: str = "auto",
+    lbfgs_mem: int = 8,
+    lipschitz=None,
+    layout: str = "auto",
+    refine: int = 0,
+    refine_tol=None,
+):
+    """Mesh-sharded solve: the same semantics as ``solve``; b is treated as
+    (S, m) (S = 1 for a single right-hand side: x, objective and gap are
+    squeezed again at the end, the traces keep their (1, iters) shape).
+    Every rank of the mesh calls it with the same arguments and returns the
+    same full result.
+
+    ``problem`` may be a pre-sharded ``(dp, part, single_rhs)`` triple from
+    ``shard_problem`` (prepare once, then solve); ``lipschitz`` skips the
+    collective power iteration.  ``shard_rows=True`` shards A's ROWS over
+    the block axis instead of its columns; a mesh with ``row > 1`` shards
+    both (2-D).  ``metrics`` and ``verbose`` act on rank 0 only; checkpoints
+    are per rank (``utils/checkpoint.py``).  ``refine``/``refine_tol``
+    polish the gathered result with the host float64 PCG on every rank."""
+    from ..solvers.base import (
+        DEFAULT_REFINE_ROUNDS, SolveOptions, SolveResult, _get_solver, _warm_up,
+        make_chunk_runner, power_lipschitz, power_lipschitz_z, refine_polish, run_chunk_loop,
+        uses_zspace,
+    )
+    from ..ops.projection import proj_blocks
+    from ..utils.checkpoint import save_state
+
+    if isinstance(problem, Problem) and problem.C is not None:
+        raise NotImplementedError(
+            "mesh=... of an equality-constrained solve is not ported yet (later slice: "
+            "distribution, the equality-constrained mesh branches)")
+    if refine_tol is not None and refine == 0:
+        refine = DEFAULT_REFINE_ROUNDS
+    if refine > 0 and not isinstance(problem, Problem):
+        raise ValueError(
+            "refine on a sharded solve needs the host Problem (the polish anchor is a "
+            "host float64 pass); pass the Problem, not a pre-sharded triple")
+    grid = mesh.shape[ROW_AXIS] > 1
+    if grid and shard_rows:
+        raise ValueError("use either a row>1 mesh axis (2-D) or shard_rows, not both")
+    if isinstance(problem, tuple):
+        if grid:
+            raise ValueError("pre-sharded solves do not support a 2-D grid")
+        dp, part, single_rhs = problem
+    else:
+        single_rhs = np.asarray(problem.b).ndim == 1
+        if grid:
+            dp, part = shard_problem_2d(problem, mesh, dtype=dtype)
+        elif shard_rows:
+            dp, part = shard_problem_rows(problem, mesh, dtype=dtype)
+        else:
+            dp, part = shard_problem(problem, mesh, dtype=dtype, layout=layout)
+    opts = SolveOptions(method=method, line_search=line_search, tol=tol, max_iter=max_iter,
+                        chunk=chunk, step_size=step_size, lbfgs_mem=lbfgs_mem)
+    solver = _get_solver(method)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    sgroup = mesh.groups[SCENARIO_AXIS]
+
+    if lipschitz is not None:
+        L_est = float(lipschitz)
+    else:
+        # line_search="pava" builds the trial point in z-space and needs the
+        # z-curvature ||A D||^2
+        power = power_lipschitz_z if uses_zspace(method, line_search) else power_lipschitz
+        L_est = power(dp)
+    xp0 = None if x0 is None else inject_sharded(dp, part, x0, mesh)
+    state = solver.init(dp, L_est, opts, xp0=xp0)
+    run = make_chunk_runner(dp, solver, opts, L_est, chunk)
+
+    def shard_info(st):
+        return {"rank": rank, "world": world, "mesh": dict(mesh.shape),
+                "leaves": leaf_layout(st, dp, mesh)}
+
+    it = 0
+    if resume and checkpoint_path:
+        state, it = _resume(checkpoint_path, state, shard_info(state))
+    if it < max_iter:
+        _warm_up(dp.device, lambda: solver.step(dp, state, L_est, opts))
+
+    def after_chunk(it, chunks_done, st, f_last, rel, secs):
+        if metrics is not None and rank == 0:
+            metrics.log("chunk", iteration=it, f=f_last.tolist(), relgap=rel.tolist(),
+                        secs=secs)
+        if checkpoint_path and checkpoint_every and chunks_done % checkpoint_every == 0:
+            save_state(checkpoint_path, st, meta={"iteration": it}, keep=checkpoint_keep,
+                       shard=shard_info(st))
+        if verbose and rank == 0:
+            print(f"[sharded] iter {it}: f={f_last} relgap={rel}")
+
+    loop = run_chunk_loop(run, state, it, max_iter, chunk, tol, stop_rule, dp.device,
+                          lambda st: to_host(torch.stack([st.f, st.gap]), sgroup, dim=1),
+                          after_chunk)
+    state, it = loop.state, loop.iterations
+    if checkpoint_path and checkpoint_every:
+        save_state(checkpoint_path, state, meta={"iteration": it}, keep=checkpoint_keep,
+                   shard=shard_info(state))
+
+    # one final exact projection (feasibility of the returned x), then the
+    # host-side extraction through the gathers
+    x = extract_sharded(dp, part, proj_blocks(state.xp, dp.buckets), mesh)
+    if loop.traces_f:
+        trace_f = to_host(torch.cat(loop.traces_f, dim=1), sgroup)
+        trace_gap = to_host(torch.cat(loop.traces_g, dim=1), sgroup)
+    else:  # resumed at or past max_iter: nothing ran this call
+        trace_f = trace_gap = np.zeros((x.shape[0], 0), np.float32)
+    f = to_host(state.f, sgroup)
+    gap = to_host(state.gap, sgroup)
+    if single_rhs:  # the traces keep their scenario axis, as in the reference
+        x, f, gap = x[0], f[0], gap[0]
+    res = SolveResult(
+        x=x, objective=f, gap=gap, iterations=it, converged=loop.converged,
+        trace_f=trace_f, trace_gap=trace_gap, chunk_times=np.asarray(loop.chunk_times),
+        chunk_iters=np.asarray(loop.chunk_iters), stop_reason=loop.stopper.reason,
+    )
+    if refine > 0:
+        # gather-and-polish: the result is already host-side; the host f64
+        # PCG path (dp=None) runs the tangent-space correction against the
+        # host Problem
+        res = refine_polish(problem, None, res, rounds=refine, target_rel_gap=refine_tol)
+    return res

@@ -36,6 +36,13 @@ class APGDState:
     t_mom: torch.Tensor  # (S,) momentum parameter
 
 
+# how each field lies on a mesh (parallel/sharding.py::leaf_layout)
+APGDState.SHARD_KINDS = {
+    "xp": "x", "yp": "x", "r": "r", "ry": "r",
+    "f": "scalar", "gap": "scalar", "k": "scalar", "t_mom": "scalar",
+}
+
+
 def init(dp: L.DeviceProblem, L_est, opts: SolveOptions, xp0=None) -> APGDState:
     # APGD steps with the fixed 1/L (or opts.step_size) FISTA step; the PGD
     # line-search modes would silently not apply, so reject them up front
@@ -76,7 +83,7 @@ def step(dp, st: APGDState, L_est, opts: SolveOptions) -> APGDState:
     xhat = projection.proj_blocks(tuple(y - step_t * g for y, g in zip(st.yp, gp)),
                                   dp.buckets)
     d_flat = L.padded_to_flat(dp, tuple(xh - y for xh, y in zip(xhat, st.yp)))
-    r_cand = st.ry + L.matvec(dp.A, d_flat)
+    r_cand = st.ry + L.matvec_ps(dp, d_flat)
     f_cand = Q.objective_from_residual(dp, r_cand)
 
     # monotone safeguard: keep the candidate only if it does not increase f

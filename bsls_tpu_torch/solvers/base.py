@@ -32,10 +32,16 @@ A ``Problem`` with equality constraints (``C``) goes to the
 augmented-Lagrangian loop of ``solvers/eq_constrained.py``, whose inner
 solves are this chunk runner on the stacked operator [A; sqrt(rho) C].
 
+``mesh=`` (``parallel.make_mesh``) runs the same chunk loop on every rank
+of a ``torch.distributed`` mesh, each on its own slice of the problem
+(``parallel/sharding.py::solve_sharded``); every cross-shard reduction of a
+step goes through the collective products and inner products of
+``ops/layout.py``.
+
 Counterpart of ``bsls_tpu/solvers/base.py`` for all six solver families
-(``_get_solver``), certify, refine, checkpoint/resume and the
-equality-constrained path on one device.  Only the mesh-sharded solve is not
-ported yet: ``mesh=`` and ``shard_rows=`` raise ``NotImplementedError``.
+(``_get_solver``), certify, refine, checkpoint/resume, the
+equality-constrained path on one device and the unconstrained solve on a
+mesh.  The equality-constrained path on a mesh is not ported yet.
 """
 from __future__ import annotations
 
@@ -200,13 +206,14 @@ class StopTracker:
 def fw_gap(dp, g_flat: torch.Tensor, x_flat: torch.Tensor, gp) -> torch.Tensor:
     """Frank-Wolfe duality gap g.(x - s) on the product of (radius-scaled)
     simplices, over the last axis: (S,) for (S, n_pf) inputs.  Dummy rows
-    (all-padding blocks) contribute nothing."""
+    (all-padding blocks) contribute nothing.  Summed over the column shards
+    when sharded."""
     total_min = 0.0
     for g, bk in zip(gp, dp.buckets):
         valid = (bk.mask > 0).any(dim=-1)
         bm = block_min(g, bk.mask)
         total_min = total_min + torch.where(valid, bk.radius * bm, torch.zeros_like(bm)).sum(dim=-1)
-    return (g_flat * x_flat).sum(dim=-1) - total_min
+    return L.psum_if_sharded(dp, (g_flat * x_flat).sum(dim=-1) - total_min)
 
 
 def _start_vector(dp: L.DeviceProblem, seed: int, v0) -> torch.Tensor:
@@ -214,10 +221,16 @@ def _start_vector(dp: L.DeviceProblem, seed: int, v0) -> torch.Tensor:
         v = torch.tensor(np.asarray(v0), dtype=dp.b.dtype)  # a copy
         if v.shape != (dp.n_pf,):
             raise ValueError(f"v0 must have shape ({dp.n_pf},), got {tuple(v.shape)}")
-    else:
-        gen = torch.Generator(device="cpu").manual_seed(seed)
-        v = torch.randn(dp.n_pf, generator=gen, dtype=dp.b.dtype)
-    return v.to(dp.device)
+        return v.to(dp.device)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    if not dp.sharded:
+        return torch.randn(dp.n_pf, generator=gen, dtype=dp.b.dtype).to(dp.device)
+    # a sharded problem: every rank takes its slice of ONE global vector,
+    # drawn in the user's column order (padding slots 0), so that the
+    # estimate does not depend on the mesh shape
+    u = torch.randn(dp.n_user, generator=gen, dtype=dp.b.dtype).to(dp.device)
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+    return torch.where(dp.perm >= 0, u[dp.perm.clamp(min=0).long()], zero)
 
 
 def _power_iterate(dp, apply_m, v: torch.Tensor, iters: int) -> float:
@@ -232,12 +245,12 @@ def _power_iterate(dp, apply_m, v: torch.Tensor, iters: int) -> float:
 
 def power_lipschitz(dp: L.DeviceProblem, iters: int = 30, seed: int = 0,
                     v0: Optional[np.ndarray] = None) -> float:
-    """||A||_2^2 estimate by power iteration on A^T A (device-side).  The
-    start vector is drawn from a ``torch.Generator`` seeded with ``seed``, or
-    taken from ``v0`` (numpy, (n_pf,)) so that two packages can start from
-    the same vector."""
+    """||A||_2^2 estimate by power iteration on A^T A (device-side,
+    collective on a sharded problem).  The start vector is drawn from a
+    ``torch.Generator`` seeded with ``seed``, or taken from ``v0`` (numpy,
+    (n_pf,)) so that two packages can start from the same vector."""
     return _power_iterate(
-        dp, lambda v: L.rmatvec(dp.A, L.matvec(dp.A, v)), _start_vector(dp, seed, v0), iters)
+        dp, lambda v: L.rmatvec_ps(dp, L.matvec_ps(dp, v)), _start_vector(dp, seed, v0), iters)
 
 
 def uses_zspace(method: str, line_search: str, space: str = "x") -> bool:
@@ -264,7 +277,7 @@ def power_lipschitz_z(dp: L.DeviceProblem, iters: int = 30, seed: int = 0,
             Z.dz_forward_padded(v, bk.mask)
             for v, bk in zip(L.flat_to_padded(dp, flat), dp.buckets)
         )
-        w = L.rmatvec(dp.A, L.matvec(dp.A, L.padded_to_flat(dp, dxp)))
+        w = L.rmatvec_ps(dp, L.matvec_ps(dp, L.padded_to_flat(dp, dxp)))
         gzp = tuple(
             Z.dz_adjoint_padded(g, bk.mask)
             for g, bk in zip(L.flat_to_padded(dp, w), dp.buckets)
@@ -296,11 +309,13 @@ def _get_solver(method: str):
 
 
 def _reject_unported(**given):
-    """Options of ``bsls_tpu.solve`` whose part is not ported yet."""
+    """Options of ``bsls_tpu`` whose part is not ported yet: the
+    equality-constrained path on a mesh."""
     for name, value in given.items():
         if value:
             raise NotImplementedError(
-                f"solve({name}=...) is not ported yet (later slice: distribution)")
+                f"{name}=... of an equality-constrained solve is not ported yet "
+                "(later slice: distribution, the equality-constrained mesh branches)")
 
 
 def _warm_up(device: torch.device, first_launch: Callable[[], Any]) -> None:
@@ -593,6 +608,75 @@ def refine_polish(problem: Problem, dp, res: SolveResult, rounds: int = 3,
     )
 
 
+def make_chunk_runner(dp, solver, opts, L_est, steps: int):
+    """run(state) -> (state, (trace_f, trace_gap)): ``steps`` solver steps
+    after an exact residual refresh, the per-step traces (S, steps) left on
+    the device."""
+    def run(st):
+        st = solver.refresh(dp, st, L_est, opts)
+        tf = torch.empty((st.f.shape[0], steps), dtype=st.f.dtype, device=dp.device)
+        tg = torch.empty_like(tf)
+        for j in range(steps):
+            st = solver.step(dp, st, L_est, opts)
+            tf[:, j] = st.f
+            tg[:, j] = st.gap
+        return st, (tf, tg)
+
+    return run
+
+
+@dataclass
+class ChunkLoop:
+    """What ``run_chunk_loop`` hands back."""
+
+    state: Any
+    iterations: int
+    converged: bool
+    stopper: StopTracker
+    traces_f: list  # per chunk, (S, chunk) on the device
+    traces_g: list
+    chunk_times: list
+    chunk_iters: list
+
+
+def run_chunk_loop(run, state, it: int, max_iter: int, chunk: int, tol: float, stop_rule: str,
+                   device: torch.device, readback: Callable[[Any], np.ndarray],
+                   after_chunk: Optional[Callable] = None) -> ChunkLoop:
+    """The chunk loop of ``solve`` and of ``solve_sharded``: K steps enqueued
+    without a host sync, then ONE readback of the end-of-chunk (f, gap) —
+    ``readback(state)`` returns them as a (2, S) array of every scenario —
+    which is also what closes the chunk's wall time.  The per-step traces
+    stay on the device until the end.  ``after_chunk(it, chunks_done, state,
+    f, rel_gap, secs)`` runs after each readback, before the stop decision.
+    On a mesh every rank sees the same (2, S) stats and so stops at the same
+    chunk."""
+    traces_f, traces_g, ctimes, citers = [], [], [], []
+    converged = False
+    stopper = StopTracker(tol, stop_rule)
+    chunks_done = 0
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    while it < max_iter:
+        state, (tf, tg) = run(state)
+        it += chunk
+        chunks_done += 1
+        traces_f.append(tf)
+        traces_g.append(tg)
+        citers.append(it)
+        fg = readback(state)  # the one readback
+        t1 = time.perf_counter()
+        ctimes.append(t1 - t0)
+        t0 = t1
+        rel = fg[1] / np.maximum(1.0, np.abs(fg[0]))
+        if after_chunk is not None:
+            after_chunk(it, chunks_done, state, fg[0], rel, ctimes[-1])
+        if stopper.update(fg[0], rel):
+            converged = True
+            break
+    return ChunkLoop(state, it, converged, stopper, traces_f, traces_g, ctimes, citers)
+
+
 def solve(
     problem: Problem | L.DeviceProblem,
     method: str = "pgd",
@@ -619,14 +703,23 @@ def solve(
     refine: int = 0,
     refine_tol: Optional[float] = None,
     device="cuda",
+    layout: str = "auto",
+    shard_rows: bool = False,
 ) -> SolveResult:
-    """Solve a block-simplex LSQ instance on one device.
+    """Solve a block-simplex LSQ instance on one device, or on a mesh.
 
     Multi-RHS problems (b of shape (S, m)) solve S scenarios at once, each
     with its own step sizes and stopping state.  ``device`` is where a host
     ``Problem`` is prepared and solved ("cuda" raises when there is no card;
     pass "cpu" to run on the CPU); a ``DeviceProblem`` is solved where it
-    lies.
+    lies.  ``layout`` is ``prepare``'s for a host ``Problem``.
+
+    ``mesh`` (``parallel.make_mesh``) solves on every rank of the mesh, on
+    the mesh's devices: each rank calls ``solve`` with the same host
+    ``Problem`` and gets the full result (``parallel.solve_sharded``;
+    ``shard_rows=True`` shards A's rows instead of its columns).  There
+    ``callback``, ``space="z"`` and ``certify`` raise, and ``refine`` polishes
+    the gathered result on the host.
 
     ``lipschitz`` skips the on-device power iteration and uses the given
     ||A||_2^2 bound (||A D||_2^2 for the z-space modes) for the 1/L trial
@@ -658,10 +751,11 @@ def solve(
     finishing outers and certified polish, the checkpoint options act per
     outer iteration, and the result carries ``eq_violation``, ``eq_lam`` and
     ``eq_rho``.  ``space``, ``callback``, ``certify``, ``lipschitz`` and a
-    ``stop_rule`` other than "auto" are rejected there.
+    ``stop_rule`` other than "auto" are rejected there, and ``mesh`` is not
+    ported yet.
     """
-    _reject_unported(mesh=mesh is not None)
     if isinstance(problem, Problem) and problem.C is not None:
+        _reject_unported(mesh=mesh is not None, shard_rows=shard_rows)
         from .eq_constrained import solve_equality_constrained
 
         # the AL outer loop supports a subset of solve()'s surface: reject
@@ -693,13 +787,33 @@ def solve(
         raise ValueError(
             "refine requires a host Problem (the correction anchor is "
             "re-evaluated in float64 on the host)")
+    if mesh is not None:
+        from ..parallel.sharding import solve_sharded
+
+        if callback is not None:
+            raise ValueError("callback is not supported for mesh-sharded solves")
+        if space != "x":
+            raise ValueError("mesh-sharded solves support space='x' only")
+        if certify > 0:
+            raise ValueError("certify is not supported for mesh-sharded solves")
+        return solve_sharded(
+            problem, mesh, method=method, tol=tol, max_iter=max_iter, chunk=chunk,
+            line_search=line_search, step_size=step_size, dtype=dtype, verbose=verbose,
+            metrics=metrics, checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every, checkpoint_keep=checkpoint_keep,
+            resume=resume, shard_rows=shard_rows, x0=x0, stop_rule=stop_rule,
+            lbfgs_mem=lbfgs_mem, lipschitz=lipschitz, layout=layout, refine=refine,
+            refine_tol=refine_tol,
+        )
+    if shard_rows:
+        raise ValueError("shard_rows=True needs a mesh")
     solver = _get_solver(method)
     if line_search not in _LINE_SEARCHES:
         raise ValueError(f"unknown line_search {line_search!r}; options: {_LINE_SEARCHES}")
     if space not in ("x", "z"):
         raise ValueError(f"unknown space {space!r}")
     if isinstance(problem, Problem):
-        dp = L.prepare(problem, dtype=dtype, device=device)  # raises on Problem.C
+        dp = L.prepare(problem, dtype=dtype, layout=layout, device=device)  # raises on Problem.C
     else:
         dp = problem
 
@@ -733,17 +847,7 @@ def solve(
     from .mega import make_mega_runner
 
     mega_run = None if multi else make_mega_runner(dp, method, opts, L_est, chunk)
-
-    def run_chunk(st, solver=solver, opts=opts, steps=chunk):
-        st = solver.refresh(dp, st, L_est, opts)
-        tf = torch.empty((st.f.shape[0], steps), dtype=st.f.dtype, device=dp.device)
-        tg = torch.empty_like(tf)
-        for j in range(steps):
-            st = solver.step(dp, st, L_est, opts)
-            tf[:, j] = st.f
-            tg[:, j] = st.gap
-        return st, (tf, tg)
-
+    run_chunk = make_chunk_runner(dp, solver, opts, L_est, chunk)
     run = mega_run if mega_run is not None else run_chunk
     it = 0
     if resume and checkpoint_path:
@@ -755,44 +859,21 @@ def solve(
         _warm_up(dp.device, (lambda: mega_run(state)) if mega_run is not None
                  else (lambda: solver.step(dp, state, L_est, opts)))
 
-    # Chunk loop: K steps enqueued without a host sync, then ONE readback of
-    # the end-of-chunk (f, gap), which is also what closes the chunk's wall
-    # time.  The per-step traces stay on the device until the end.
-    traces_f, traces_g, ctimes, citers = [], [], [], []
-    converged = False
-    stopper = StopTracker(tol, stop_rule)
-    chunks_done = 0
-    if dp.device.type == "cuda":
-        torch.cuda.synchronize(dp.device)
-    t0 = time.perf_counter()
-    while it < max_iter:
-        state, (tf, tg) = run(state)
-        it += chunk
-        chunks_done += 1
-        traces_f.append(tf)
-        traces_g.append(tg)
-        citers.append(it)
-        fg = torch.stack([state.f, state.gap]).cpu().numpy()  # the one readback
-        t1 = time.perf_counter()
-        ctimes.append(t1 - t0)
-        t0 = t1
-        f_last = fg[0] if multi else fg[0, 0]
-        gap_last = fg[1] if multi else fg[1, 0]
-        rel = gap_last / np.maximum(1.0, np.abs(f_last))
+    def after_chunk(it, chunks_done, st, f_last, rel, secs):
+        if not multi:
+            f_last, rel = f_last[0], rel[0]
         if metrics is not None:
-            metrics.log(
-                "chunk", iteration=it, f=f_last.tolist(), relgap=rel.tolist(),
-                secs=ctimes[-1],
-            )
+            metrics.log("chunk", iteration=it, f=f_last.tolist(), relgap=rel.tolist(), secs=secs)
         if checkpoint_path and checkpoint_every and chunks_done % checkpoint_every == 0:
-            save_state(checkpoint_path, state, meta={"iteration": it}, keep=checkpoint_keep)
+            save_state(checkpoint_path, st, meta={"iteration": it}, keep=checkpoint_keep)
         if callback is not None:
-            callback(it, state)
+            callback(it, st)
         if verbose:
             print(f"iter {it}: f={f_last} relgap={rel}")
-        if stopper.update(f_last, rel):
-            converged = True
-            break
+
+    loop = run_chunk_loop(run, state, it, max_iter, chunk, tol, stop_rule, dp.device,
+                          lambda st: torch.stack([st.f, st.gap]).cpu().numpy(), after_chunk)
+    state, it = loop.state, loop.iterations
     if checkpoint_path and checkpoint_every:
         save_state(checkpoint_path, state, meta={"iteration": it}, keep=checkpoint_keep)
 
@@ -809,14 +890,14 @@ def solve(
         opts_c = SolveOptions(method="afw", line_search="exact", tol=0.0,
                               max_iter=certify, chunk=certify)
         state_c = _fw.init(dp, L_est, opts_c, xp0=state.xp)
-        state_c, _ = run_chunk(state_c, solver=_fw, opts=opts_c, steps=certify)
+        state_c, _ = make_chunk_runner(dp, _fw, opts_c, L_est, certify)(state_c)
         f_c = state_c.f.cpu().numpy()
         if bool(np.all(f_c <= state.f.cpu().numpy() + 1e-12)):
             state = replace(state, xp=state_c.xp, r=state_c.r, f=state_c.f, gap=state_c.gap)
 
-    if traces_f:
-        trace_f = torch.cat(traces_f, dim=1).cpu().numpy()
-        trace_gap = torch.cat(traces_g, dim=1).cpu().numpy()
+    if loop.traces_f:
+        trace_f = torch.cat(loop.traces_f, dim=1).cpu().numpy()
+        trace_gap = torch.cat(loop.traces_g, dim=1).cpu().numpy()
     else:  # max_iter <= 0, or resumed at or past it: nothing ran
         trace_f = trace_gap = np.zeros((state.f.shape[0], 0), np.float32)
     # one final exact projection: guarantees feasibility of the returned x
@@ -833,12 +914,12 @@ def solve(
         objective=f,
         gap=gap,
         iterations=it,
-        converged=converged,
+        converged=loop.converged,
         trace_f=trace_f,
         trace_gap=trace_gap,
-        chunk_times=np.asarray(ctimes),
-        chunk_iters=np.asarray(citers),
-        stop_reason=stopper.reason,
+        chunk_times=np.asarray(loop.chunk_times),
+        chunk_iters=np.asarray(loop.chunk_iters),
+        stop_reason=loop.stopper.reason,
     )
     if refine > 0:
         res = refine_polish(problem, dp, res, rounds=refine, target_rel_gap=refine_tol)

@@ -45,6 +45,12 @@ class FWState:
     qp: tuple | None = None  # diag(A^T A) per bucket (Bk, w), pairwise mode only
 
 
+# how each field lies on a mesh (parallel/sharding.py::leaf_layout)
+FWState.SHARD_KINDS = {
+    "xp": "x", "r": "r", "f": "scalar", "gap": "scalar", "k": "scalar", "qp": "bucket",
+}
+
+
 def init(dp: L.DeviceProblem, L_est, opts: SolveOptions, xp0=None) -> FWState:
     b = rhs(dp)
     xp = xp0 if xp0 is not None else L.feasible_init(dp, scenarios=b.shape[0])
@@ -85,7 +91,7 @@ def step(dp, st: FWState, L_est, opts: SolveOptions) -> FWState:
     else:
         dxp, d_flat, g_dot_d = d_fw, d_fw_flat, g_dot_dfw
 
-    Ad = L.matvec(dp.A, d_flat)
+    Ad = L.matvec_ps(dp, d_flat)
     if opts.line_search == "fixed" and not pairwise:
         t = 2.0 / (st.k.to(g_flat.dtype) + 2.0)
     else:

@@ -65,6 +65,16 @@ class LBFGSState:
     gamma: torch.Tensor  # (S,) H0 scaling (s.y)/(y.y) of the newest pair
 
 
+# how each field lies on a mesh (parallel/sharding.py::leaf_layout)
+LBFGSState.SHARD_KINDS = {
+    "xp": "x", "r": "r", "f": "scalar", "gap": "scalar", "k": "scalar",
+    "u_prev": "xflat", "g_prev": "xflat",
+    "s_hist": "xflat_hist", "y_hist": "xflat_hist",
+    "rho_hist": "hist", "sty": "gram", "yty": "gram",
+    "gamma": "scalar",
+}
+
+
 def compact_hg(dp, g_flat: torch.Tensor, st: LBFGSState) -> torch.Tensor:
     """q = H g via the compact (BNS) representation — two batched history
     products + two MxM triangular solves per scenario."""
@@ -232,7 +242,7 @@ def step(dp, st: LBFGSState, L_est, opts: SolveOptions) -> LBFGSState:
 
     # ---- exact quadratic line search along the chosen direction ----
     d_flat = L.padded_to_flat(dp, dxp)
-    Ad = L.matvec(dp.A, d_flat)
+    Ad = L.matvec_ps(dp, d_flat)
     t = Q.exact_step(dp, L.xdot(dp, g_flat, d_flat), Ad, 0.0, 1.0)
 
     tb = t[:, None, None]

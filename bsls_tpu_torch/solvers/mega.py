@@ -11,6 +11,8 @@ certificate are recomputed exactly at the chunk boundary; within a chunk the
 f-trace comes from the kernel and ``trace_gap`` repeats the boundary value.
 
 Eligibility (all required; anything else keeps the eager path):
+  an unsharded problem (the reference keeps a mesh off it: a chunk in one
+  launch has no place for the collectives of a step),
   method pgd + exact line search in x-space, a single right-hand side, dense
   A, one width bucket, fp32, a block width the kernel's projection takes, and
   A small enough to stay in the card's L2 cache between the two reads of a
@@ -49,7 +51,7 @@ def use_mega() -> bool:
 
 
 def mega_eligible(dp, method: str, opts) -> bool:
-    if not use_mega():
+    if not use_mega() or dp.sharded:
         return False
     if method != "pgd" or opts.line_search != "exact" or opts.space != "x":
         return False

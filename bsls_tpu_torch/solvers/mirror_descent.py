@@ -43,6 +43,13 @@ class EGState:
     g_prev: torch.Tensor  # (S, n_pf) previous gradient
 
 
+# how each field lies on a mesh (parallel/sharding.py::leaf_layout)
+EGState.SHARD_KINDS = {
+    "xp": "x", "r": "r", "f": "scalar", "gap": "scalar", "k": "scalar",
+    "x_prev": "xflat", "g_prev": "xflat",
+}
+
+
 def init(dp: L.DeviceProblem, L_est, opts: SolveOptions, xp0=None) -> EGState:
     b = rhs(dp)
     xp = xp0 if xp0 is not None else L.feasible_init(dp, scenarios=b.shape[0])
@@ -89,7 +96,7 @@ def step(dp, st: EGState, L_est, opts: SolveOptions) -> EGState:
     x_eg = eg_update(st.xp, gp, t0, dp.buckets)
     dxp = tuple(xe - x for xe, x in zip(x_eg, st.xp))
     d_flat = L.padded_to_flat(dp, dxp)
-    Ad = L.matvec(dp.A, d_flat)
+    Ad = L.matvec_ps(dp, d_flat)
     if opts.line_search == "fixed":
         t = torch.ones_like(st.f)
     else:

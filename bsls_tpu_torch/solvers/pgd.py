@@ -40,6 +40,13 @@ class PGDState:
     g_prev: torch.Tensor  # (S, n_pf) previous gradient, same space
 
 
+# how each field lies on a mesh (parallel/sharding.py::leaf_layout)
+PGDState.SHARD_KINDS = {
+    "xp": "x", "r": "r", "f": "scalar", "gap": "scalar", "k": "scalar",
+    "x_prev": "xflat", "g_prev": "xflat",
+}
+
+
 def _rhs(dp: L.DeviceProblem) -> torch.Tensor:
     return dp.b if dp.b.ndim == 2 else dp.b[None]
 
@@ -119,7 +126,7 @@ def step(dp, st: PGDState, L_est, opts: SolveOptions) -> PGDState:
         dxp = tuple(xh.sub_(x) for xh, x in zip(xhat, st.xp))  # xhat is fresh
 
     d_flat = L.padded_to_flat(dp, dxp)
-    Ad = L.matvec(dp.A, d_flat)
+    Ad = L.matvec_ps(dp, d_flat)
     if opts.line_search == "exact":
         t = Q.exact_step(dp, L.xdot(dp, g_flat, d_flat), Ad, 0.0, 1.0)
     elif opts.line_search in ("bbm", "pava"):

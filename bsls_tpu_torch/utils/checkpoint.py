@@ -20,8 +20,16 @@ Tensors are saved through ``.cpu().numpy()`` and loaded onto the device and
 dtype of the state they are loaded into.  A field that is ``None`` stays
 ``None``; a Python scalar field comes back as the same type.
 
-Counterpart of ``bsls_tpu/utils/checkpoint.py`` without its per-process shard
-dump (a mesh of several processes is not ported).
+**On a mesh** (``shard=`` from ``parallel/sharding.py``) every rank writes its
+own slice of the state, with each leaf's global offset and global shape and
+the mesh's shape; in a world of more than one process the file of rank K is
+``<stem>[.itNNNNNNNNN].procK.npz``.  A rank loads its own file and refuses
+one written on another mesh shape.  Which checkpoint to resume from is
+agreed by all ranks (``parallel/sharding.py``: the newest iteration that
+every rank holds a file of), so every rank resumes at the same iteration, and
+a rank that cannot load its file makes every rank raise.
+
+Counterpart of ``bsls_tpu/utils/checkpoint.py``.
 """
 from __future__ import annotations
 
@@ -36,13 +44,19 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["save_state", "load_state", "latest_checkpoint"]
+__all__ = ["save_state", "load_state", "latest_checkpoint", "checkpoint_files"]
 
-_STAMP_RE = re.compile(r"\.it(\d{9})\.npz$")
+_STAMP_RE = re.compile(r"\.it(\d{9})(?:\.proc\d+)?\.npz$")
+_PROC_RE = re.compile(r"\.proc\d+\.npz$")
+_ONE = {"row": 1, "block": 1, "scenario": 1}
 
 
 def _stem(path: str) -> str:
     return path[:-4] if path.endswith(".npz") else path
+
+
+def _suffix(shard: dict | None) -> str:
+    return f".proc{shard['rank']}" if shard and shard["world"] > 1 else ""
 
 
 def _flatten(state: Any) -> tuple[str, list]:
@@ -101,28 +115,38 @@ def _atomic_write(target: str, payload: dict) -> None:
             os.remove(tmp)
 
 
-def save_state(path: str, state: Any, meta: dict | None = None, keep: int = 0) -> None:
+def save_state(path: str, state: Any, meta: dict | None = None, keep: int = 0,
+               shard: dict | None = None) -> None:
     """Atomic save of a solver state (+ JSON-able meta) to .npz.
 
     ``keep > 0`` writes an iteration-stamped file (meta must carry
     ``iteration``) and rotates old stamps; ``keep == 0`` overwrites ``path``
-    itself."""
+    itself.  ``shard`` (a rank's slice of a state on a mesh: ``rank``,
+    ``world``, ``mesh`` shape, and per leaf ``[global offset, global
+    shape]`` as ``leaves``) is stored beside the leaves; with ``world > 1``
+    the file takes the ``.procK`` suffix."""
     structure, leaves = _flatten(state)
     payload: dict = {"structure": np.asarray(structure)}
     for i, x in enumerate(leaves):
         payload[f"leaf_{i}"] = _to_numpy(x)
     if meta:
         payload["meta"] = np.asarray(json.dumps(meta))
+    if shard:
+        payload["shard"] = np.asarray(json.dumps(
+            {"mesh": shard["mesh"], "leaves": shard["leaves"]}))
     if keep > 0:
         it = int((meta or {}).get("iteration", 0))
-        _atomic_write(f"{_stem(path)}.it{it:09d}.npz", payload)
-        _prune(path, keep)
+        _atomic_write(f"{_stem(path)}.it{it:09d}{_suffix(shard)}.npz", payload)
+        _prune(path, keep, _suffix(shard))
     else:
-        _atomic_write(f"{_stem(path)}.npz", payload)
+        _atomic_write(f"{_stem(path)}{_suffix(shard)}.npz", payload)
 
 
-def _prune(path: str, keep: int) -> None:
-    stamped = sorted(f for f in glob.glob(f"{_stem(path)}.it*.npz") if _STAMP_RE.search(f))
+def _prune(path: str, keep: int, suffix: str = "") -> None:
+    """Keep this process's newest ``keep`` stamps (each rank prunes its own
+    files)."""
+    stamped = sorted(f for f in glob.glob(f"{_stem(path)}.it*{suffix}.npz")
+                     if _STAMP_RE.search(f) and (suffix or not _PROC_RE.search(f)))
     for f in stamped[:-keep]:
         try:
             os.remove(f)
@@ -148,28 +172,50 @@ def _restore(a: np.ndarray, ref, i: int):
     return type(ref)(a)  # a Python scalar (e.g. PGDState.k)
 
 
-def load_state(path: str, like: Any):
+def load_state(path: str, like: Any, shard: dict | None = None):
     """Load a state saved by ``save_state`` into the structure of ``like``.
 
-    Refuses a file of another structure (class or field names), and checks
-    each leaf's shape and dtype against ``like``'s.  Returns (state, meta)."""
+    Refuses a file of another structure (class or field names), one written
+    on another mesh shape or with other global offsets than ``shard`` says
+    (a file without mesh is one of the 1 x 1 x 1 mesh), and checks each
+    leaf's shape and dtype against ``like``'s.  Returns (state, meta)."""
     raw = np.load(path, allow_pickle=False)
     structure, leaves_like = _flatten(like)
     saved = str(raw["structure"]) if "structure" in raw.files else None
     if saved != structure:
         raise ValueError(f"checkpoint {path} holds {saved}, not {structure}")
+    info = json.loads(str(raw["shard"])) if "shard" in raw.files else {}
+    mesh_saved, mesh_now = info.get("mesh", _ONE), (shard or {}).get("mesh", _ONE)
+    if mesh_saved != mesh_now:
+        raise ValueError(f"checkpoint {path} was written on mesh {mesh_saved}, "
+                         f"not on this mesh {mesh_now}")
+    if shard and info and info["leaves"] != shard["leaves"]:
+        raise ValueError(f"checkpoint {path} holds other slices of the state than this "
+                         "rank's")
     leaves = [_restore(raw[f"leaf_{i}"], ref, i) for i, ref in enumerate(leaves_like)]
     meta = json.loads(str(raw["meta"])) if "meta" in raw.files else {}
     return _unflatten(like, leaves), meta
 
 
+def checkpoint_files(path: str, rank: int | None = None) -> dict:
+    """The checkpoints for ``path`` by iteration stamp, the plain (unstamped)
+    file under ``None``.  ``rank`` lists the files of that rank of a world of
+    several processes."""
+    suffix = "" if rank is None else f".proc{rank}"
+    files = {int(_STAMP_RE.search(f).group(1)): f
+             for f in glob.glob(f"{_stem(path)}.it*{suffix}.npz")
+             if _STAMP_RE.search(f) and (suffix or not _PROC_RE.search(f))}
+    cand = f"{_stem(path)}{suffix}.npz"
+    if os.path.exists(cand):
+        files[None] = cand
+    elif rank is None and os.path.exists(path):
+        files[None] = path
+    return files
+
+
 def latest_checkpoint(path: str) -> str | None:
     """The newest checkpoint for ``path``: the highest iteration-stamped
     sibling if rotation was used, else the plain file."""
-    stamped = [f for f in glob.glob(f"{_stem(path)}.it*.npz") if _STAMP_RE.search(f)]
-    if stamped:
-        return max(stamped, key=lambda f: _STAMP_RE.search(f).group(1))
-    cand = f"{_stem(path)}.npz"
-    if os.path.exists(cand):
-        return cand
-    return path if os.path.exists(path) else None
+    files = checkpoint_files(path)
+    stamps = [k for k in files if k is not None]
+    return files[max(stamps)] if stamps else files.get(None)

@@ -18,8 +18,6 @@ __all__ = ["RunConfig", "PRESETS", "load_config"]
 # the value that means "off" and the slice that brings the feature
 _UNPORTED_OFF = {
     "unroll": (1, "no scan to unroll: the port's chunk is a Python loop"),
-    "mesh_block": (0, "distribution"),
-    "mesh_scenario": (1, "distribution"),
 }
 
 
@@ -42,6 +40,10 @@ class RunConfig:
     dtype: str = "float32"
     equilibrate: bool = True
     layout: str = "auto"  # auto | banded | gather  (ops.layout.prepare)
+    # mesh (parallel.make_mesh): 0 = no mesh; block x scenario must equal the
+    # world size (torchrun's, or a world of one)
+    mesh_block: int = 0
+    mesh_scenario: int = 1
     # harness
     device: str = "cuda"  # cuda | cpu
     oracle: bool = False  # compute CPU float64 oracle for parity metrics
@@ -76,6 +78,13 @@ PRESETS = {
     # the grid-network route-flow instance with equality constraints
     # (configs/traffic.json): lbfgs inners of the augmented-Lagrangian loop
     "traffic": RunConfig(config="traffic", method="lbfgs"),
+    # config 4: 1M uniform blocks x 4 scenarios (run it on a mesh with
+    # --mesh-block/--mesh-scenario, or on one device)
+    "large": RunConfig(
+        config="large", method="pgd",
+        instance_kwargs={"num_blocks": 1_000_000, "dim": 8, "num_scenarios": 4},
+        mesh_block=0, chunk=50,
+    ),
     "sweep-fw": RunConfig(config="medium", method="frank_wolfe"),
     "sweep-eg": RunConfig(config="medium", method="eg"),
     "sweep-pgd-pava": RunConfig(config="medium", method="pgd", line_search="pava"),

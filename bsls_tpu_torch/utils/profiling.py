@@ -14,9 +14,10 @@ Runs ``iters`` steps of a solver (``--method``, default pgd; several
 methods or line searches separated by commas, one line each) under
 ``torch.profiler`` after a warm-up and prints one JSON line per run: wall time per iteration (host clock around
 a synchronised window), the device's busy time per iteration (union of the
-kernel intervals), its idle share, and the kernels by name with their device
-time and launches per iteration (the sixteen largest and every kernel of
-``csrc/``).  Needs a CUDA device; a trace without any device event is an
+kernel intervals), its idle share, the NCCL kernels' device time and share of
+the busy time (a sharded problem's collectives), and the kernels by name
+with their device time and launches per iteration (the sixteen largest and
+every kernel of ``csrc/``).  Needs a CUDA device; a trace without any device event is an
 error, not a result.
 """
 from __future__ import annotations
@@ -92,6 +93,9 @@ def profile_steps(dp, line_search: str, iters: int, warmup: int = 5, trace_path=
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0] if len(spans) > 1 else busy
+    # the collectives of a sharded problem: NCCL's kernels (gloo's work runs
+    # on the host and shows here only as its copies)
+    nccl_us = sum(us for name, (_, us) in by_name.items() if "nccl" in name.lower())
     kernels = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     # the sixteen largest, and the hand-written kernels of csrc/ wherever they rank
     kernels = kernels[:16] + [kv for kv in kernels[16:] if "bsls::" in kv[0]]
@@ -103,6 +107,8 @@ def profile_steps(dp, line_search: str, iters: int, warmup: int = 5, trace_path=
         "device_busy_ms_per_iter": busy / 1e3 / iters,
         "device_idle_share": 1.0 - busy / window,
         "launches_per_iter": sum(c for c, _ in by_name.values()) / iters,
+        "nccl_ms_per_iter": nccl_us / 1e3 / iters,
+        "nccl_share_of_busy": nccl_us / busy,
         "kernels": [
             {"name": name[:100], "launches_per_iter": c / iters, "ms_per_iter": us / 1e3 / iters}
             for name, (c, us) in kernels

@@ -41,6 +41,12 @@ through ``prepare``/``solve``:
   SIGKILL after its first checkpoint and the solve resumed to 400
   iterations against an uninterrupted run; the CLI with ``--checkpoint`` and
   ``--profile-dir`` on the card, its trace holding CUDA kernel events;
+* the mesh, on config 4 at full width (``synthetic.large_sharded(seed=0)``:
+  1M blocks of 8, 48M nonzeros, S = 4): the unsharded solve against a world
+  of one over NCCL in this process (``mesh_world1``); four rank processes on
+  the one card over gloo, block 2 x scenario 2 (``mesh_ranks``, a
+  correctness run); ``dryrun_multichip(4, device="cuda")`` (``mesh_dryrun``);
+  kernels 1-4 held against their plain versions at rank shard shapes;
 * in a fresh process, the first chunk of the exact path against the second:
   the kernel library's load and the first launches come before the clock.
 
@@ -65,6 +71,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -1950,6 +1957,314 @@ def phase_checkpoint(prob, dp, total=400):
     return counts
 
 
+# ------------------------------------------------------------------- the mesh
+
+MESH_ITERS = 100  # mesh_world1: two chunks of the preset `large`'s 50
+MESH_CHUNK = 50
+MESH_WORLD1_RTOL = 2e-5  # 5.1e-6 read on the H100 (layouts that sum in another order)
+MESH_RANKS = 4  # mesh_ranks: block 2 x scenario 2 on the one card, over gloo
+MESH_RANK_ITERS = 50
+MESH_RANK_TIMEOUT = 420
+
+
+def rank_view(shape, coords):
+    """One rank's view of a mesh without process groups: what a rank of that
+    mesh prepares and hands its kernels, made in this process."""
+    from bsls_tpu_torch.parallel.mesh import AXES, Mesh
+
+    return Mesh(shape={**dict.fromkeys(AXES, 1), **shape},
+                coords={**dict.fromkeys(AXES, 0), **coords},
+                groups=dict.fromkeys(AXES), device=DEV, device_mesh=None)
+
+
+def _peak_gb():
+    return torch.cuda.max_memory_allocated(DEV) / 1e9
+
+
+def phase_mesh_world1(ctx):
+    """Config 4 at full width: the unsharded solve against the world-of-one
+    mesh over NCCL (this process; the default backend takes NCCL for CUDA
+    tensors), 100 pgd/exact iterations with one Lipschitz constant.
+
+    The two layouts differ as the reference routes them: unsharded, the rows
+    are bucketed by nonzero count (and permuted); on a mesh they never are.
+    Their fp32 sums run in another order, and the fp32 trajectories part from
+    that alone: 5.1e-6 relative after 100 steps on the H100.  The limit,
+    MESH_WORLD1_RTOL, is set from that reading.  (The kernels take float32
+    only: no float64 pair on the card.)"""
+    from bsls_tpu_torch.ops.layout import _prepare_banded
+    from bsls_tpu_torch.parallel.sharding import shard_problem, solve_sharded
+    from bsls_tpu_torch.utils.profiling import profile_steps
+
+    t_phase = time.perf_counter()
+    prob = ctx["large"]
+    S = int(prob.b.shape[0])
+    # layout="auto" tries the band first at S < 16: its attempt, alone
+    t0 = time.perf_counter()
+    band = _prepare_banded(prob, torch.float32, True, False, DEV)
+    band_secs = time.perf_counter() - t0
+    check(band is None, "mesh_world1: the random-incidence instance took the band")
+    t0 = time.perf_counter()
+    dp = bt.prepare(prob, device=DEV)
+    prepare_secs = time.perf_counter() - t0
+    check(not isinstance(dp.A, DeviceBanded), "mesh_world1: unsharded layout is banded")
+    mesh = bt.make_mesh(block=1, device=DEV)
+    t0 = time.perf_counter()
+    dpm, part = shard_problem(prob, mesh)
+    prepare_mesh_secs = time.perf_counter() - t0
+    L_est = bt.solvers.power_lipschitz(dp)
+    kw = dict(method="pgd", line_search="exact", tol=0.0, max_iter=MESH_ITERS, chunk=MESH_CHUNK,
+              lipschitz=L_est)
+    runs, peaks = {}, {}
+    for key, run in (("unsharded", lambda: bt.solve(dp, **kw)),
+                     ("mesh", lambda: solve_sharded((dpm, part, False), mesh, **kw))):
+        torch.cuda.reset_peak_memory_stats(DEV)
+        resident = torch.cuda.memory_allocated(DEV) / 1e9  # both problems and earlier phases
+        bt.reset_launch_counts()
+        runs[key] = run()
+        launches = bt.launch_counts()  # the mesh's, read last
+        peaks[key] = {"peak": _peak_gb(), "resident_before": resident}
+    fm = np.asarray(runs["mesh"].objective, np.float64)
+    check(fm.shape == (S,) and np.all(np.isfinite(fm)), "mesh_world1: bad mesh objective")
+    ends = runs["mesh"].trace_f[:, MESH_CHUNK - 1::MESH_CHUNK]
+    check(np.all(np.diff(ends, axis=1) <= 0), "mesh_world1: objective rose between chunks")
+    check(launches["proj_simplex_rows"] > 0, "mesh_world1: no projection launch on the mesh")
+    fu = np.asarray(runs["unsharded"].objective, np.float64)
+    rel = float(np.max(np.abs(fm - fu) / np.maximum(np.abs(fu), 1e-30)))
+    check(rel <= MESH_WORLD1_RTOL, f"mesh_world1: mesh objective {rel:.2e} relative off the "
+          f"unsharded one (limit {MESH_WORLD1_RTOL})")
+    prof = profile_steps(dpm, "exact", iters=10)
+    prof_u = profile_steps(dp, "exact", iters=10)
+    # kernels 1-2 at a rank's shard of the bucket: Bk / 2 rows, S / 2 scenarios
+    bk = dpm.buckets[0]
+    half = bk.mask.shape[0] // 2
+    shard = types.SimpleNamespace(buckets=(dataclasses.replace(
+        bk, mask=bk.mask[half:], sizes=bk.sizes[half:], radius=bk.radius[half:]),))
+    row_checks = {}
+    for name in ("proj_simplex_rows", "pava_rows"):
+        err, per_bucket = check_rows_at(name, shard, S // 2, seed=81)
+        row_checks[name] = {"max_abs_err": err, **per_bucket[0]}
+    ctx["mesh_trace_at_rank_iters"] = runs["mesh"].trace_f[:, MESH_RANK_ITERS - 1]
+    ctx["mesh_L"] = L_est
+    rows, vals = np.asarray(prob.A.rows), np.asarray(prob.A.vals)
+    profile_keys = ("wall_ms_per_iter", "device_busy_ms_per_iter", "device_idle_share",
+                    "launches_per_iter", "nccl_ms_per_iter", "nccl_share_of_busy")
+    emit("mesh_world1", config="large_sharded(seed=0)", blocks=int(prob.partition.num_blocks),
+         shape=list(prob.A.shape), nnz=int(prob.A.nnz),
+         row_nnz_max=int(np.bincount(rows[vals != 0], minlength=prob.A.shape[0]).max()),
+         scenarios=S, gen_secs=ctx["large_gen_secs"], band_attempt_secs=band_secs,
+         prepare_secs=prepare_secs, prepare_mesh_secs=prepare_mesh_secs,
+         device_bytes={"unsharded": _tensor_bytes(dp), "mesh": _tensor_bytes(dpm)},
+         row_groups={"unsharded": [list(c.shape) for c in dp.A.mv_cols]
+                     if isinstance(dp.A.mv_cols, tuple) else None,
+                     "mesh": None if dpm.A.mv_cols is None else list(dpm.A.mv_cols.shape)},
+         backend=torch.distributed.get_backend(), mesh=dict(mesh.shape), lipschitz=L_est,
+         iterations=MESH_ITERS, chunk=MESH_CHUNK,
+         aggregate_iters_per_sec={k: S * r.steady_iters_per_sec() for k, r in runs.items()},
+         objective={k: np.asarray(r.objective).tolist() for k, r in runs.items()},
+         mesh_rel_diff=rel, mesh_rtol=MESH_WORLD1_RTOL,
+         x_max_abs_diff=float(np.abs(runs["mesh"].x - runs["unsharded"].x).max()),
+         memory_gb=peaks, launches=launches,
+         step_profile={k: prof[k] for k in profile_keys},
+         step_profile_unsharded={k: prof_u[k] for k in profile_keys},
+         top_kernels=prof["kernels"][:8], top_kernels_unsharded=prof_u["kernels"][:8],
+         kernels_at_shard_shapes=row_checks, secs=time.perf_counter() - t_phase)
+    del dp, dpm
+    torch.cuda.empty_cache()
+    return launches, row_checks
+
+
+def check_pages_at_shard(ctx):
+    """Kernels 3-4 at one rank's band groups: medium_banded x 4 split over a
+    block axis of 2, rank 1 (its groups start at ladder page gl), on the
+    operands that rank's products hand them: its segment of x, and the page
+    windows of the padded residual from its page offset on."""
+    from bsls_tpu_torch.parallel.sharding import shard_problem
+
+    prob = ctx["banded_prob"][4]
+    dp, _ = shard_problem(prob, rank_view({"block": 2}, {"block": 1}), layout="banded")
+    A, S = dp.A, 4
+    check(isinstance(A, DeviceBanded) and 2 * A.bands[0].shape[0] == A.pages
+          and A.page_off == A.bands[0].shape[0], "mesh: the band is not split over 2 ranks")
+    gen = torch.Generator(device=DEV).manual_seed(29)
+    out = {}
+    for name in ("band_zmv", "band_grmv"):
+        spec = KERNELS[name]
+        errs, ms, bytes_, ops, shapes = [], 0.0, 0.0, 0.0, []
+        for band in A.bands:
+            gl, C, W = band.shape
+            if name == "band_zmv":
+                v = torch.randn((S, gl, C), generator=gen, device=DEV)
+            else:
+                rp = torch.randn((S, (A.pages + A.wpages) * PAGE), generator=gen, device=DEV)
+                v = rp[:, A.page_off * PAGE:].as_strided((S, gl, W), (rp.stride(0), PAGE, 1))
+            errs.append(compare_pages(name, spec, band, v))
+            ms += device_ms(lambda j: spec["fn"](band, v), reps=10)
+            bytes_ += 4 * (band.numel() + S * gl * (C + W))
+            ops += 2 * S * band.numel()
+            shapes.append([S, gl, C, W])
+        b_ms, by = bound(bytes_, ops)
+        out[name] = {"max_abs_err": max(errs), "ms": ms, "bound_ms": b_ms, "bound_by": by,
+                     "bands": shapes, "page_off": A.page_off, "pages": A.pages}
+    emit("mesh_kernels_at_shard", **out)
+    return out
+
+
+def mesh_rank_child(rank, workdir):
+    """``--mesh-rank-child R DIR``: rank R of the mesh_ranks world (gloo on a
+    ``file://`` store in DIR, every rank on cuda:0).  Solves config 4 from
+    DIR/large.npz on a block 2 x scenario 2 mesh and writes DIR/rank{R}.json:
+    its launches, the host seconds in its collectives (each call's wait for
+    the card's prior work included), its timings and its (full) result."""
+    import torch.distributed as dist
+
+    from bsls_tpu_torch.models import Problem
+
+    with open(os.path.join(workdir, "spec.json")) as fh:
+        spec = json.load(fh)
+    torch.cuda.set_device(DEV)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(workdir, 'init')}",
+                            rank=rank, world_size=MESH_RANKS)
+    coll = {"secs": 0.0, "calls": 0}
+
+    def timed(fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                coll["secs"] += time.perf_counter() - t0
+                coll["calls"] += 1
+        return run
+
+    for name in ("all_reduce", "all_gather", "broadcast_object_list"):
+        setattr(dist, name, timed(getattr(dist, name)))
+    t0 = time.perf_counter()
+    prob = Problem.load(os.path.join(workdir, "large.npz"))
+    load_secs = time.perf_counter() - t0
+    mesh = bt.make_mesh(block=2, scenario=2, device=DEV)
+    bt.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = bt.solve(prob, mesh=mesh, method="pgd", line_search="exact", tol=0.0,
+                   max_iter=MESH_RANK_ITERS, chunk=MESH_RANK_ITERS, lipschitz=spec["L"])
+    solve_secs = time.perf_counter() - t0
+    out = {"rank": rank, "coords": mesh.coords, "launches": bt.launch_counts(),
+           "collective_secs": coll["secs"], "collective_calls": coll["calls"],
+           "loop_secs": float(np.sum(res.chunk_times)), "solve_secs": solve_secs,
+           "load_secs": load_secs, "objective": np.asarray(res.objective).tolist(),
+           "x_sum": float(np.sum(res.x)), "peak_gb": _peak_gb()}
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh_ranks(ctx):
+    """Four rank processes on the one card over gloo (block 2 x scenario 2),
+    the same instance written once by this process: held against
+    mesh_world1's trace at 50 iterations.  A correctness run: four processes
+    share one card, so its rates are no scaling figure."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    prob = ctx["large"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        np.savez(os.path.join(tmp, "large.npz"), A_rows=prob.A.rows, A_vals=prob.A.vals,
+                 A_num_rows=np.array(prob.A.num_rows), b=prob.b,
+                 block_sizes=prob.partition.sizes, name=np.array(prob.name))
+        write_secs = time.perf_counter() - t0
+        with open(os.path.join(tmp, "spec.json"), "w") as fh:
+            json.dump({"L": ctx["mesh_L"]}, fh)
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w") for r in range(MESH_RANKS)]
+        procs = [subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"),
+                                   "--mesh-rank-child", str(r), tmp], cwd=here,
+                                  stdout=logs[r], stderr=subprocess.STDOUT,
+                                  env={**os.environ, "LOCAL_RANK": str(r)})
+                 for r in range(MESH_RANKS)]
+        deadline = time.monotonic() + MESH_RANK_TIMEOUT
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:  # every rank is stopped, by its own PID
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for fh in logs:
+                fh.close()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(os.path.join(tmp, f"rank{r}.log")) as fh:
+                    raise PhaseFailed(f"mesh_ranks: rank {r} exited with {p.returncode}:\n"
+                                      f"{fh.read()[-3000:]}")
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    want = np.asarray(ctx["mesh_trace_at_rank_iters"], np.float64)
+    f0 = np.asarray(ranks[0]["objective"], np.float64)
+    rel = float(np.max(np.abs(f0 - want) / np.maximum(np.abs(want), 1e-30)))
+    check(rel <= 1e-4, f"mesh_ranks: {rel:.2e} relative off mesh_world1's trace at "
+          f"{MESH_RANK_ITERS}")
+    for rk in ranks:
+        check(rk["objective"] == ranks[0]["objective"] and rk["x_sum"] == ranks[0]["x_sum"],
+              f"mesh_ranks: rank {rk['rank']} returned another result")
+        check(rk["launches"]["proj_simplex_rows"] > 0,
+              f"mesh_ranks: rank {rk['rank']} made no projection launch")
+    launches = dict.fromkeys(KERNELS, 0)
+    for rk in ranks:
+        for name, c in rk["launches"].items():
+            launches[name] += c
+    S = len(ranks[0]["objective"])
+    emit("mesh_ranks", ranks=MESH_RANKS, mesh={"row": 1, "block": 2, "scenario": 2},
+         backend="gloo", device="cuda:0 (every rank)", iterations=MESH_RANK_ITERS,
+         objective=ranks[0]["objective"], rel_diff_vs_world1_trace=rel,
+         aggregate_iters_per_sec=S * MESH_RANK_ITERS / max(rk["loop_secs"] for rk in ranks),
+         per_rank=[{k: rk[k] for k in ("rank", "coords", "launches", "collective_secs",
+                                       "collective_calls", "loop_secs", "solve_secs",
+                                       "load_secs", "peak_gb")} for rk in ranks],
+         write_secs=write_secs, launches=launches, secs=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_mesh_dryrun():
+    """``dryrun_multichip(4, device="cuda")``: every sharded code path on
+    tiny shapes against its unsharded twin, four ranks on the card (gloo).
+    Its launches are those of the sharded solves alone; the twins' are
+    reported apart."""
+    from bsls_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    out = dryrun_multichip(MESH_RANKS, device="cuda", timeout=400)
+    cases = out["cases"]
+    check(len(cases) >= 14 and max(cases.values()) <= 1e-4, f"mesh_dryrun: {cases}")
+    for name in ("proj_simplex_rows", "pava_rows", "band_zmv", "band_grmv"):
+        check(out["launches"].get(name, 0) > 0,
+              f"mesh_dryrun: the ranks' sharded solves made no {name} launch")
+    emit("mesh_dryrun", ranks=MESH_RANKS, cases=cases, launches=out["launches"],
+         twin_launches=out["twin_launches"], secs=time.perf_counter() - t0)
+    return {name: out["launches"].get(name, 0) for name in KERNELS}
+
+
+def phase_mesh(ctx, report):
+    """The three mesh phases; their launches and the kernels' errors at the
+    shard shapes go into ``report``."""
+    t0 = time.perf_counter()
+    ctx["large"] = bt.synthetic.large_sharded(seed=0)
+    ctx["large_gen_secs"] = time.perf_counter() - t0
+    launches, row_checks = phase_mesh_world1(ctx)
+    page_checks = check_pages_at_shard(ctx)
+    paths = [launches, phase_mesh_ranks(ctx), phase_mesh_dryrun()]
+    for name, nums in {**row_checks, **page_checks}.items():
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], nums["max_abs_err"])
+        report[name]["at_shard_shapes"] = nums
+    return paths
+
+
 def chunk0_child():
     """``--chunk0-child``: a fresh process that solves medium x 128 (pgd,
     exact, three chunks of 100) and prints its chunk wall times.  The kernel
@@ -1985,12 +2300,17 @@ def main():
                     help="the fresh process of the chunk0 phase (prints its chunk times only)")
     ap.add_argument("--checkpoint-child", default=None, metavar="PATH",
                     help="the process of the checkpoint phase that is killed mid-run")
+    ap.add_argument("--mesh-rank-child", nargs=2, default=None, metavar=("RANK", "DIR"),
+                    help="a rank process of the mesh_ranks phase")
     args = ap.parse_args()
     if args.chunk0_child:
         chunk0_child()
         return
     if args.checkpoint_child:
         checkpoint_child(args.checkpoint_child)
+        return
+    if args.mesh_rank_child:
+        mesh_rank_child(int(args.mesh_rank_child[0]), args.mesh_rank_child[1])
         return
     t_start = time.perf_counter()
 
@@ -2058,6 +2378,9 @@ def main():
     new_paths.append(phase_serve_queue(prob, base))
     new_paths.append(phase_serve_eq(ctx))
     new_paths.append(phase_checkpoint(prob, dp))
+    # the mesh: config 4 at full width (world of one over NCCL, four ranks on
+    # the card over gloo) and the dry run; kernels 1-4 at rank shard shapes
+    new_paths.extend(phase_mesh(ctx, report))
     for name, err in ctx["eq_row_errs"].items():
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
     phase_chunk0()

@@ -166,8 +166,12 @@ def test_config_loads_reference_files_and_rejects_unported():
                                "resume": True, "profile_dir": "prof"})
     assert (cfg.checkpoint_path, cfg.checkpoint_every, cfg.resume, cfg.profile_dir) == (
         "ck", 2, True, "prof")
-    with pytest.raises(NotImplementedError, match="mesh_block"):
-        RunConfig.from_dict({"config": "tiny", "mesh_block": 8})
+    # the mesh fields are ported too; a field of no counterpart still raises
+    cfg = RunConfig.from_dict({"config": "tiny", "mesh_block": 8, "mesh_scenario": 2})
+    assert (cfg.mesh_block, cfg.mesh_scenario) == (8, 2)
+    assert load_config("large").chunk == 50 and load_config("large").mesh_block == 0
+    with pytest.raises(NotImplementedError, match="unroll"):
+        RunConfig.from_dict({"config": "tiny", "unroll": 4})
     assert load_config("tiny", device="cpu").device == "cpu"
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"

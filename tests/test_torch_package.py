@@ -134,6 +134,8 @@ def test_default_device_without_a_card_raises():
         device_problem_from_numpy({})
 
 
+# options whose part was not ported: the mesh, which now runs the
+# unconstrained solve; only its equality-constrained branch still raises
 UNPORTED = {
     "mesh": dict(mesh=object()),
 }
@@ -143,9 +145,18 @@ UNPORTED = {
 def test_unported_options_raise(name):
     import bsls_tpu_torch as bt
 
-    prob = bt.synthetic.tiny_dense(num_blocks=4, dim=3, m=10)
+    eq = bt.synthetic.traffic_like(num_blocks=10, m=30, num_eq=3)
     with pytest.raises(NotImplementedError, match="not ported"):
-        bt.solve(prob, device="cpu", **UNPORTED[name])
+        bt.solve(eq, device="cpu", **UNPORTED[name])
+    # the unconstrained solve on a mesh (a world of one) runs, as the
+    # unsharded solve does
+    prob = bt.synthetic.tiny_dense(num_blocks=4, dim=3, m=10)
+    bt.init_distributed("gloo")
+    mesh = bt.make_mesh(block=1, device="cpu")
+    got = bt.solve(prob, mesh=mesh, max_iter=50, chunk=10, lipschitz=10.0)
+    want = bt.solve(prob, device="cpu", max_iter=50, chunk=10, lipschitz=10.0)
+    np.testing.assert_allclose(got.objective, want.objective, rtol=1e-6)
+    np.testing.assert_allclose(got.x, want.x, atol=1e-6)
 
 
 # options that raised "not ported" until the refine/certify and solver-family
@@ -239,11 +250,19 @@ def test_cli_runs_on_the_cpu_and_counts_no_launch():
     assert bt.launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
-@pytest.mark.parametrize("flag", [["--mesh-block", "8"], ["--unroll", "4"]])
+@pytest.mark.parametrize("flag", [["--mesh-block", "1"], ["--unroll", "4"]])
 def test_cli_rejects_flags_of_unported_parts(flag):
-    proc = _cli("--device", "cpu", "--config", "tiny", *flag)
-    assert proc.returncode == 2
-    assert "unrecognized arguments" in proc.stderr
+    """--unroll has no counterpart and is rejected; --mesh-block, rejected
+    until the mesh was ported, now runs (a world of one here)."""
+    proc = _cli("--device", "cpu", "--config", "tiny", "--max-iter", "100", *flag)
+    if flag[0] == "--unroll":
+        assert proc.returncode == 2
+        assert "unrecognized arguments" in proc.stderr
+        return
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["mesh"] == {"row": 1, "block": 1, "scenario": 1} and out["n_devices"] == 1
+    assert out["iterations"] == 100
 
 
 def test_cli_checkpoint_resume_and_profile_dir(tmp_path):
