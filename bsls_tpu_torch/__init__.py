@@ -16,9 +16,11 @@ CLI, all on one device, with CUDA kernels (``csrc/``) for the block-simplex
 projection, the bounded isotonic regression, the two per-page band
 contractions and the fused chunk of PGD iterations; and the unconstrained
 solve on a ``torch.distributed`` mesh (``make_mesh``, ``solve(mesh=...)``:
-column, row, 2-D and banded sharding).  The equality-constrained path and
-serving on a mesh are not ported yet.  Entry points take ``device=`` and
-default to ``"cuda"``; they run on the CPU only when asked to.
+column, row, 2-D and banded sharding), the equality-constrained loop on a
+mesh (the stacked operator sharded by column or by row) and serving on a
+mesh (``Endpoint(mesh=...)``, ``BatchQueue`` over it): everything
+``bsls_tpu`` does but its benchmark harness.  Entry points take ``device=``
+and default to ``"cuda"``; they run on the CPU only when asked to.
 
 Precision: fp32 on the device with float64 anchors on the host.  Dense and
 batched contractions stay at full fp32 — reduced-precision matrix passes cap

@@ -12,6 +12,7 @@
     python -m bsls_tpu_torch --config tiny --profile-dir prof/ --device cpu
     torchrun --nproc-per-node 2 -m bsls_tpu_torch --config tiny --mesh-block 2 --device cpu
     python -m bsls_tpu_torch --preset large --mesh-block 1     # a world of one
+    torchrun --nproc-per-node 2 -m bsls_tpu_torch --config traffic --mesh-block 2 --device cpu
 
 Emits one JSON result line: iterations/s, objective, FW gap, the torch
 device, ``refine_secs``/``refine_fw_gap`` after a polish, ``eq_violation``
@@ -25,7 +26,8 @@ state every K chunks (outer iterations on an equality-constrained instance)
 and resume from the newest checkpoint; ``--profile-dir`` writes a
 ``torch.profiler`` trace of the solve.  ``--mesh-block B [--mesh-scenario
 S]`` solves on a B x S mesh (``parallel.make_mesh``) of the ``torchrun``
-world, or of a world of one without ``torchrun``; the result line gains
+world, or of a world of one without ``torchrun`` (an equality-constrained
+instance runs its augmented-Lagrangian loop there); the result line gains
 ``"mesh"`` and is printed by rank 0 only, and metrics and checkpoints are
 off under a mesh, as in the reference.
 """
@@ -137,10 +139,6 @@ def main(argv=None):
             f_star = cached_oracle_objective(prob, key)
 
     eq = prob.C is not None
-    if eq and mesh is not None:
-        raise NotImplementedError(
-            "--mesh-block of an equality-constrained instance is not ported yet (later "
-            "slice: distribution, the equality-constrained mesh branches)")
     if eq and (cfg.layout == "banded" or not cfg.equilibrate):
         raise ValueError("an equality-constrained instance runs on the equilibrated gather "
                          "layout of its stacked operator: drop --layout banded / "
@@ -156,10 +154,11 @@ def main(argv=None):
         with trace(cfg.profile_dir):
             if eq:
                 # the augmented-Lagrangian loop prepares its stacked operator
-                # itself; refine/refine_tol are its finishing outers
+                # itself (on a mesh, each rank its tile); refine/refine_tol
+                # are its finishing outers
                 dp = None
                 res = bsls.solve(prob, dtype=getattr(torch, cfg.dtype), refine=cfg.refine,
-                                 refine_tol=cfg.refine_tol, device=dev, **kw)
+                                 refine_tol=cfg.refine_tol, device=dev, mesh=mesh, **kw)
             elif mesh is not None:
                 from bsls_tpu_torch.parallel.sharding import shard_problem, solve_sharded
 

@@ -28,6 +28,15 @@ the layout that the reference's ``prepare`` built.
     b, perm, row_perm, n_user, num_rows
     buckets[i].mask / .sizes / .radius / .width
 
+A rank's tile of a sharded problem takes the same keys, each array sliced
+at the rank in this package's local shapes (what ``parallel/sharding.py``
+builds for that rank: buckets and ``perm`` at its columns, row-ELL as
+``(1, m_loc, kr)``, ``b`` at its scenarios and row segment), with
+``num_rows`` and ``A.split`` global as the reference stores them; pass
+``row_shards`` (the local heights are ``num_rows / row_shards``, and so the
+stacked top's ``split / row_shards``) and the process groups ``col_group`` /
+``row_group`` the tile is summed over.
+
 ``state_from_numpy`` keys: ``xp[i]``, ``r``, ``f``, ``gap``, ``k``,
 ``x_prev``, ``g_prev``; arrays without a scenario axis get one of length 1.
 
@@ -57,7 +66,8 @@ def _numbered(d: dict, stem: str):
     return out
 
 
-def device_problem_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> DeviceProblem:
+def device_problem_from_numpy(d: dict, device="cuda", dtype=torch.float32, row_shards: int = 1,
+                              col_group=None, row_group=None) -> DeviceProblem:
     dev = resolve_device(device)
 
     # torch.tensor copies: the arrays may be read-only views of foreign buffers
@@ -89,7 +99,7 @@ def device_problem_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> De
         if f"{stem}.data" in d:
             return DeviceDense(data=fl(d[f"{stem}.data"]))
         if f"{stem}.split" in d:
-            split = int(d[f"{stem}.split"])
+            split = int(d[f"{stem}.split"]) // row_shards  # the top's local height
             return DeviceVStack(
                 top=matrix(f"{stem}.top", split),
                 bottom=matrix(f"{stem}.bottom", num_rows - split),
@@ -111,7 +121,7 @@ def device_problem_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> De
         return ell(stem, num_rows)
 
     num_rows = int(d["num_rows"])
-    A = matrix("A", num_rows)
+    A = matrix("A", num_rows // row_shards)
     buckets = []
     while f"buckets[{len(buckets)}].mask" in d:
         stem = f"buckets[{len(buckets)}]"
@@ -129,6 +139,8 @@ def device_problem_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> De
         n_user=int(d["n_user"]),
         num_rows=num_rows,
         row_perm=opt("row_perm", ix),
+        col_group=col_group,
+        row_group=row_group,
     )
 
 

@@ -27,7 +27,10 @@ shards) and returns ONE rank's slice, the tile ``shard = (row shard, column
 shard)``: the rank uploads only that.  Column-sharded ELL keeps the column
 orientation of its own columns and a row copy with local column ids; a
 row-sharded or 2-D ELL is re-encoded per tile with local row ids (and local
-column ids on the 2-D grid).  ``col_group``/``row_group`` are the process
+column ids on the 2-D grid).  A stacked ``DeviceVStack`` shards each part
+alike: column-sharded, both take the rank's columns (A x partials of full
+height); row-sharded, each part its own rows, so a rank holds the locally
+stacked [top_k; s bottom_k].  ``col_group``/``row_group`` are the process
 groups the columns and the rows are split over; ``matvec_ps``,
 ``rmatvec_ps``, ``psum_if_sharded``, ``xdot``, ``rdot`` and ``xmatdot``
 all-reduce over them (``quadratic.diag_quad`` too, over the row group), and
@@ -136,7 +139,9 @@ class DeviceVStack:
     """[top; scale * bottom] vertical stack (the augmented-Lagrangian operator
     [A; sqrt(rho) C]).  ``bottom_scale`` is a 0-d tensor on the device, so rho
     changes by swapping it, with no re-preparation; ``split`` is the number
-    of rows of the top part."""
+    of rows of the top part in this rank's view (its local height under row
+    sharding, where each rank holds the locally stacked [top_k; s
+    bottom_k])."""
 
     top: "DeviceMatrix"
     bottom: "DeviceMatrix"
@@ -519,20 +524,24 @@ def to_device_matrix(
             num_rows=M.num_rows,
         )
     if isinstance(M, VStackMatrix):
-        if n_shards > 1 or row_shards > 1:
-            raise NotImplementedError(
-                "a sharded stacked operator [A; s C] is not ported yet (later slice: "
-                "distribution, the equality-constrained mesh branches)")
         # each part keeps its own row order (no row-nnz bucketing: the
-        # stacked right-hand side is [b; b_bottom] as the caller builds it)
+        # stacked right-hand side is [b; b_bottom] as the caller builds it).
+        # Sharded, each part takes the same tile: the rank's columns of the
+        # one device-major perm (and col_scale), and under row sharding its
+        # own row segment of each part, so that the rank holds the locally
+        # stacked [top_k; s bottom_k] (the caller pads each part to the row
+        # shards and interleaves b to match) and ``split`` is the top's
+        # LOCAL height, where rmatvec divides r.
         scale, bottom = 1.0, M.bottom
         if isinstance(bottom, ScaledMatrix):
             scale, bottom = bottom.scale, bottom.inner
+        part = dict(dtype=dtype, col_scale=col_scale, device=dev, n_shards=n_shards,
+                    row_shards=row_shards, shard=shard)
         return DeviceVStack(
-            top=to_device_matrix(M.top, perm, dtype, col_scale, device=dev),
-            bottom=to_device_matrix(bottom, perm, dtype, col_scale, device=dev),
+            top=to_device_matrix(M.top, perm, **part),
+            bottom=to_device_matrix(bottom, perm, **part),
             bottom_scale=torch.tensor(scale, dtype=dtype, device=dev),
-            split=M.top.shape[0],
+            split=M.top.shape[0] // row_shards,
         )
     raise TypeError(f"unsupported host matrix type {type(M)}")
 
@@ -1003,8 +1012,9 @@ def rmatvec(A: DeviceMatrix, r: torch.Tensor) -> torch.Tensor:
     if isinstance(A, DeviceDense):
         return r @ A.data
     if isinstance(A, DeviceVStack):
-        # one device holds all rows, so the top/bottom boundary is the static
-        # split (the reference's _vstack_top_rows for unsharded rows)
+        # ``split`` is the top's height in this rank's view: all its rows,
+        # or under row sharding its local segment (the reference's
+        # _vstack_top_rows), never the global boundary
         return (rmatvec(A.top, r[..., :A.split])
                 + A.bottom_scale * rmatvec(A.bottom, r[..., A.split:]))
     if A.rt_rows is not None:

@@ -8,12 +8,15 @@
 every solver family (pgd, apgd, lbfgs, eg, frank_wolfe, afw) and pgd with
 ``line_search="pava"`` with column sharding; a 3-chunk run and a checkpoint resume; a ragged multi-bucket
 partition; row sharding of dense and of ELL A; the 2-D (row x column) grid
-when n % 4 == 0; and the banded layout under column sharding.  Each sharded
-solve is held against an unsharded twin run with the same explicit Lipschitz
+when n % 4 == 0; the banded layout under column sharding; and the
+equality-constrained loop on the stacked operator sharded by column and by
+row, and with a ``refine`` round after a converged loop.  Each sharded solve
+is held against an unsharded twin run with the same explicit Lipschitz
 constant: the objectives must agree to ``rtol`` (1e-4; 1e-3 for the resumed
-run), so a misplaced all-reduce fails the run, not just a NaN.  The
-equality-constrained case of the reference's dry run belongs to a later
-slice.
+run and for the equality-constrained loop, whose twin estimates its own
+constants as the reference's does), so a misplaced all-reduce fails the
+run, not just a NaN; the refined loop must also hold its constraints to
+1e-6.
 
 Ranks that share a card use gloo (NCCL refuses two ranks on one device);
 with a card per rank the default backend takes NCCL for CUDA tensors.  A
@@ -39,7 +42,10 @@ import numpy as np
 __all__ = ["dryrun_multichip"]
 
 
-def _check(report, res, what, twin, rtol=1e-4):
+def _check(report, res, what, twin, rtol=1e-4, scale=1e-30):
+    """Hold ``res`` against ``twin`` (objectives to ``rtol``, 1e-7 absolute)
+    and report their difference relative to the twin's objective, or to
+    ``scale`` where that is larger (an objective at zero)."""
     obj, ref = np.asarray(res.objective), np.asarray(twin.objective)
     if not np.all(np.isfinite(obj)):
         raise AssertionError(f"non-finite objective: {what}")
@@ -47,7 +53,7 @@ def _check(report, res, what, twin, rtol=1e-4):
         raise AssertionError(f"{what}: shape {obj.shape} != {ref.shape}")
     if not np.allclose(obj, ref, rtol=rtol, atol=1e-7):
         raise AssertionError(f"sharded/unsharded objective mismatch: {what}: {obj} vs {ref}")
-    report[what] = float(np.max(np.abs(obj - ref) / np.maximum(np.abs(ref), 1e-30)))
+    report[what] = float(np.max(np.abs(obj - ref) / np.maximum(np.abs(ref), scale)))
 
 
 def _counted(into: dict, fn):
@@ -150,6 +156,30 @@ def _cases(n: int, device: str, workdir: str) -> tuple[dict, dict, dict]:
     kw = dict(method="pgd", tol=0.0, max_iter=2, chunk=1, lipschitz=lipschitz(corr))
     _check(report, sharded(corr, mesh_b, layout="banded", **kw), "sharded banded",
            twin(corr, layout="banded", **kw))
+
+    # 7. the equality-constrained loop over sharded inner solves: the stacked
+    # operator by column and by row (p = 4 rows of C padded to the row
+    # shards), then a refine round after a converged loop
+    eq = bt.synthetic.traffic_like(seed=4, num_blocks=8 * n, m=64, num_eq=4, noise=0.0)
+
+    def eq_pair(name, shard_rows=False, scale=1e-30, **kw):
+        got = _counted(mesh_launches, lambda: bt.solve_equality_constrained(
+            eq, mesh=mesh_b, shard_rows=shard_rows, **kw))
+        want = _counted(twin_launches, lambda: bt.solve_equality_constrained(
+            eq, device=dev, **kw))
+        _check(report, got, name, want, rtol=1e-3, scale=scale)
+        return got
+
+    kw = dict(method="apgd", tol=0.0, outer_iters=1, inner_iters=1, chunk=1)
+    eq_pair("eq-constrained", **kw)
+    eq_pair("eq-constrained rows", shard_rows=True, **kw)
+    # both loops end at the planted flow, objective ~1e-25: their difference
+    # is reported relative to the objective at x = 0
+    f_zero = 0.5 * float(np.sum(np.square(np.asarray(eq.b, np.float64))))
+    refined = eq_pair("eq-constrained+refine", method="apgd", tol=1e-7, outer_iters=6,
+                      inner_iters=300, chunk=100, refine=1, scale=f_zero)
+    if not refined.eq_violation <= 1e-6:
+        raise AssertionError(f"mesh eq+refine violation {refined.eq_violation}")
     return report, mesh_launches, twin_launches
 
 

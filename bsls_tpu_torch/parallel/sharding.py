@@ -25,11 +25,18 @@ chunk loop as ``solve`` (``solvers/base.py::run_chunk_loop``).  Its one
 readback per chunk is an all-gather of (f, gap) over 'scenario', so every
 rank's stop rule sees every scenario and every rank stops at the same chunk.
 
+The stacked operator [A; s C] of the equality-constrained path shards like
+any other A: by column, each part takes the rank's columns; by row
+(``shard_rows``), each part is padded to the block axis on its own and a rank
+holds the locally stacked [A_k; s C_k], its b segment ``[b_top_k; b_bot_k]``
+(``interleave_stacked_rows``).  ``solve_sharded`` of a ``Problem`` with ``C``
+runs the augmented-Lagrangian loop of ``solvers/eq_constrained.py`` on the
+mesh.
+
 Counterpart of ``bsls_tpu/parallel/sharding.py``, where one controller
 ``shard_map``s the steps over a ``jax.sharding.Mesh``.  What it does not
 take: its second chunk loop with an adaptive sync cadence (a workaround for
-that platform's readback latency), and the stacked operator of the
-equality-constrained path (a later slice).
+that platform's readback latency).
 """
 from __future__ import annotations
 
@@ -41,12 +48,13 @@ import torch
 import torch.distributed as dist
 
 from ..models.partition import BlockPartition
-from ..models.problem import DenseMatrix, EllMatrix, Problem, VStackMatrix
+from ..models.problem import DenseMatrix, EllMatrix, Problem, ScaledMatrix, VStackMatrix
 from ..ops import layout as L
 from .mesh import BLOCK_AXIS, ROW_AXIS, SCENARIO_AXIS
 
-__all__ = ["shard_problem", "shard_problem_rows", "shard_problem_2d", "inject_sharded",
-           "to_host", "extract_sharded", "leaf_layout", "solve_sharded"]
+__all__ = ["shard_problem", "shard_problem_rows", "shard_problem_2d", "interleave_stacked_rows",
+           "with_rank_rhs", "inject_sharded", "to_host", "extract_sharded", "leaf_layout",
+           "solve_sharded"]
 
 
 # ---------------- problem sharding ----------------
@@ -78,28 +86,51 @@ def _block_partition(problem: Problem, nb: int) -> Problem:
     return problem
 
 
+def interleave_stacked_rows(b_top: np.ndarray, b_bot: np.ndarray, nr: int) -> np.ndarray:
+    """Arrange a stacked RHS [b_top; b_bot] ((S, m) and (S, p)) into the
+    row-sharded stacked layout, where shard k owns the locally stacked rows
+    [top_k; bottom_k]: pad each part to a multiple of ``nr``, split it into
+    ``nr`` row segments, and concatenate segment-wise."""
+    S = b_top.shape[0]
+    bt = np.concatenate([b_top, np.zeros((S, (-b_top.shape[1]) % nr), b_top.dtype)], axis=1)
+    bb = np.concatenate([b_bot, np.zeros((S, (-b_bot.shape[1]) % nr), b_bot.dtype)], axis=1)
+    return np.concatenate([bt.reshape(S, nr, -1), bb.reshape(S, nr, -1)], axis=2).reshape(S, -1)
+
+
+def _pad_matrix_rows(M, pad: int, what: str):
+    """``M`` with ``pad`` zero rows below (zero rows add nothing to a
+    least-squares residual)."""
+    if isinstance(M, DenseMatrix):
+        if not pad:
+            return M
+        return DenseMatrix(np.concatenate(
+            [M.data, np.zeros((pad, M.data.shape[1]), M.data.dtype)], axis=0))
+    if isinstance(M, EllMatrix):
+        return EllMatrix(rows=M.rows, vals=M.vals, num_rows=M.num_rows + pad) if pad else M
+    raise NotImplementedError(
+        f"{what} supports dense and ELL A, got {type(M)}. For bandable (corridor) "
+        "instances use block sharding with layout='banded': band groups own "
+        "advancing row windows, so a group shard already touches only its own "
+        "row pages")
+
+
 def _pad_rows(problem: Problem, nr: int, b: np.ndarray, what: str) -> Problem:
-    """Zero-pad A's rows and b so that ``nr`` divides them (zero rows add
-    nothing to a least-squares residual)."""
-    A, m = problem.A, problem.A.shape[0]
-    pad = (-m) % nr
+    """Zero-pad A's rows and b so that ``nr`` divides them.  A stacked
+    ``VStackMatrix`` pads each part on its own (p < nr included) and its b
+    is interleaved so that each row shard's segment is its locally stacked
+    ``[b_top_k; b_bot_k]``."""
+    A = problem.A
     if isinstance(A, VStackMatrix):
-        raise NotImplementedError(
-            f"{what} of a stacked operator [A; s C] is not ported yet (later slice: "
-            "distribution, the equality-constrained mesh branches)")
-    if isinstance(A, DenseMatrix):
-        if pad:
-            A = DenseMatrix(np.concatenate(
-                [A.data, np.zeros((pad, A.data.shape[1]), A.data.dtype)], axis=0))
-    elif isinstance(A, EllMatrix):
-        if pad:
-            A = EllMatrix(rows=A.rows, vals=A.vals, num_rows=m + pad)
-    else:
-        raise NotImplementedError(
-            f"{what} supports dense and ELL A, got {type(A)}. For bandable (corridor) "
-            "instances use block sharding with layout='banded': band groups own "
-            "advancing row windows, so a group shard already touches only its own "
-            "row pages")
+        bottom, scale = A.bottom, None
+        if isinstance(bottom, ScaledMatrix):
+            bottom, scale = bottom.inner, bottom.scale
+        mt, p = A.top.shape[0], bottom.shape[0]
+        bottom = _pad_matrix_rows(bottom, (-p) % nr, what)
+        A = VStackMatrix(top=_pad_matrix_rows(A.top, (-mt) % nr, what),
+                         bottom=bottom if scale is None else ScaledMatrix(bottom, scale))
+        return replace(problem, A=A, b=interleave_stacked_rows(b[:, :mt], b[:, mt:], nr))
+    pad = (-A.shape[0]) % nr
+    A = _pad_matrix_rows(A, pad, what)
     if pad:
         b = np.concatenate([b, np.zeros((b.shape[0], pad), b.dtype)], axis=1)
     return replace(problem, A=A, b=b)
@@ -113,7 +144,9 @@ def shard_problem(problem: Problem, mesh, dtype=torch.float32, equilibrate: bool
     lays A's columns out device-major.  Returns (dp, part) where
     ``dp.col_group`` is the block group.  When the banded layout is
     selected (``layout`` as in ``prepare``), ``part`` is the value-grouped
-    partition the band ladder solves under: extraction maps through it."""
+    partition the band ladder solves under: extraction maps through it.  A
+    stacked ``VStackMatrix`` takes the gather layout under ``"auto"``, as
+    ``prepare`` gives it."""
     nb = mesh.shape[BLOCK_AXIS]
     problem = _block_partition(problem, nb)
     b = _rhs_2d(problem, mesh)
@@ -132,8 +165,10 @@ def shard_problem_rows(problem: Problem, mesh, dtype=torch.float32):
     re-encoded per shard in both orientations with local row ids, so each
     rank gathers only from its own r segment and the A^T r partials
     all-reduce.  Rows are zero-padded so the axis divides m.  A stacked
-    ``VStackMatrix`` (the equality-constrained operator) raises: its slice
-    is a later one."""
+    ``VStackMatrix`` (the equality-constrained operator) shards the rows of
+    BOTH parts: rank k holds the locally stacked [A_k; s C_k], each part
+    padded on its own, and b is interleaved to match
+    (``interleave_stacked_rows``)."""
     nr = mesh.shape[BLOCK_AXIS]
     b = _rhs_2d(problem, mesh)
     problem = _pad_rows(problem, nr, b, "row sharding")
@@ -160,6 +195,20 @@ def shard_problem_2d(problem: Problem, mesh, dtype=torch.float32):
                    col_group=mesh.groups[BLOCK_AXIS], row_group=mesh.groups[ROW_AXIS],
                    scenarios=_my_scenarios(b, mesh))
     return dp, problem.partition
+
+
+def with_rank_rhs(dp, b: np.ndarray, mesh):
+    """``dp`` with this rank's slice of the right-hand sides ``b`` uploaded:
+    ``b`` is (S, m) in the row layout of the prepare (rows padded to the row
+    shards, or interleaved for a row-sharded stacked operator); the rank takes
+    its scenarios and, under row sharding, its row segment.  Uploaded as
+    given and cast on the device."""
+    row_shards, rsh = 1, 0
+    if dp.row_group is not None:
+        ax = ROW_AXIS if dp.col_group is not None else BLOCK_AXIS
+        row_shards, rsh = mesh.shape[ax], mesh.coords[ax]
+    local = L._local_b(np.asarray(b), _my_scenarios(b, mesh), row_shards, rsh)
+    return replace(dp, b=torch.from_numpy(local).to(dp.device).to(dp.b.dtype))
 
 
 # ---------------- host side of the sharded solve ----------------
@@ -265,8 +314,9 @@ def leaf_layout(state, dp, mesh) -> list:
 
 
 def _resume(path: str, state, shard: dict):
-    """(state, iteration) from the newest checkpoint of which every rank holds
-    its file; (state, 0) where there is none.  Every rank lists its own files
+    """(state, meta) from the newest checkpoint of which every rank holds its
+    file (``meta["iteration"]`` its iteration); (state, {}) where there is
+    none.  Every rank lists its own files
     and all take the same iteration, so a rank whose newest file is missing
     (killed between the ranks' writes, or pruned by its own rotation) cannot
     send the others another way.  A rank that cannot load its file makes
@@ -281,7 +331,8 @@ def _resume(path: str, state, shard: dict):
     common = set(held[0]).intersection(*held[1:])
     stamps = [k for k in common if k is not None]
     if not stamps and None not in common:
-        return state, 0
+        return state, {}
+    meta = {}
     try:
         state, meta = load_state(mine[max(stamps) if stamps else None], state, shard=shard)
         status = (int(meta.get("iteration", 0)), None)
@@ -296,7 +347,7 @@ def _resume(path: str, state, shard: dict):
     if len(iterations) > 1:
         raise ValueError(f"cannot resume from {path}: the ranks' files hold iterations "
                          f"{iterations}")
-    return state, iterations[0]
+    return state, meta
 
 
 def solve_sharded(
@@ -336,7 +387,13 @@ def solve_sharded(
     the block axis instead of its columns; a mesh with ``row > 1`` shards
     both (2-D).  ``metrics`` and ``verbose`` act on rank 0 only; checkpoints
     are per rank (``utils/checkpoint.py``).  ``refine``/``refine_tol``
-    polish the gathered result with the host float64 PCG on every rank."""
+    polish the gathered result with the host float64 PCG on every rank.
+
+    A ``Problem`` with equality constraints (``C``) runs the
+    augmented-Lagrangian loop on the mesh (``solve_equality_constrained``
+    with ``mesh``): ``max_iter`` is then its total inner budget, and
+    ``stop_rule``, ``lipschitz``, ``layout`` other than "auto" and
+    ``verbose`` are rejected there."""
     from ..solvers.base import (
         DEFAULT_REFINE_ROUNDS, SolveOptions, SolveResult, _get_solver, _warm_up,
         make_chunk_runner, power_lipschitz, power_lipschitz_z, refine_polish, run_chunk_loop,
@@ -346,9 +403,19 @@ def solve_sharded(
     from ..utils.checkpoint import save_state
 
     if isinstance(problem, Problem) and problem.C is not None:
-        raise NotImplementedError(
-            "mesh=... of an equality-constrained solve is not ported yet (later slice: "
-            "distribution, the equality-constrained mesh branches)")
+        from ..solvers.eq_constrained import solve_equality_constrained
+
+        unsupported = {"stop_rule": stop_rule != "auto", "lipschitz": lipschitz is not None,
+                       "layout": layout != "auto", "verbose": verbose}
+        bad = [k for k, v in unsupported.items() if v]
+        if bad:
+            raise ValueError(f"equality-constrained solve does not support {bad}")
+        return solve_equality_constrained(
+            problem, method=method, tol=tol, max_iter=max_iter, chunk=chunk,
+            line_search=line_search, step_size=step_size, dtype=dtype, mesh=mesh,
+            lbfgs_mem=lbfgs_mem, x0=x0, metrics=metrics, checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every, checkpoint_keep=checkpoint_keep,
+            resume=resume, shard_rows=shard_rows, refine=refine, refine_tol=refine_tol)
     if refine_tol is not None and refine == 0:
         refine = DEFAULT_REFINE_ROUNDS
     if refine > 0 and not isinstance(problem, Problem):
@@ -393,7 +460,8 @@ def solve_sharded(
 
     it = 0
     if resume and checkpoint_path:
-        state, it = _resume(checkpoint_path, state, shard_info(state))
+        state, meta = _resume(checkpoint_path, state, shard_info(state))
+        it = int(meta.get("iteration", 0))
     if it < max_iter:
         _warm_up(dp.device, lambda: solver.step(dp, state, L_est, opts))
 

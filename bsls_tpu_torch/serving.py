@@ -24,8 +24,15 @@ sensitivity fast path (``solve_eq_sensitivity``) when it certifies.
 ``BatchQueue`` coalesces concurrent single-RHS requests onto the scenario
 axis.
 
-Counterpart of the single-device branches of ``bsls_tpu/serving.py``;
-``mesh=`` raises ``NotImplementedError`` (the distribution slice).
+On a mesh (``Endpoint(problem, mesh=...)``, every rank of the mesh builds
+the endpoint and makes the same calls): an unconstrained endpoint shards and
+uploads A once and estimates ||A||^2 once, with one collective power
+iteration, and each request uploads only the rank's scenarios of b; an eq
+endpoint's ``op_cache`` holds the sharded stacked operator after the first
+request.  A ``BatchQueue`` over a mesh endpoint of several processes lets
+rank 0 alone compose the batches and sends each to the other ranks.
+
+Counterpart of ``bsls_tpu/serving.py``.
 """
 from __future__ import annotations
 
@@ -41,7 +48,10 @@ import torch
 
 from .models.problem import Problem
 from .ops import layout as L
-from .solvers.base import DEFAULT_REFINE_ROUNDS, SolveResult, refine_polish, solve
+from .solvers.base import (
+    DEFAULT_REFINE_ROUNDS, SolveResult, power_lipschitz, power_lipschitz_z, refine_polish, solve,
+    uses_zspace,
+)
 
 __all__ = ["Endpoint", "BatchQueue"]
 
@@ -59,15 +69,16 @@ class Endpoint:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Endpoint(mesh=...) is not ported yet (later slice: distribution)")
         self.method = method
         self.line_search = line_search
         self.chunk = chunk
         self.dtype = dtype
         self.warm_start = warm_start
-        dev = L.resolve_device(device)  # no card and no device="cpu": raises
+        self.mesh = mesh
+        if mesh is not None:
+            dev = mesh.device
+        else:
+            dev = L.resolve_device(device)  # no card and no device="cpu": raises
         if dev.type == "cuda" and dev.index is None:
             # the constructing thread's current card; BatchQueue's worker
             # makes it current in its own thread
@@ -84,7 +95,18 @@ class Endpoint:
         self._eq_ops: dict = {}
         if self._eq:
             # the AL loop prepares its stacked operator at the first request
+            # (on a mesh, each rank its tile of it)
             self._dp = None
+        elif mesh is not None:
+            from .parallel.sharding import shard_problem
+
+            # shard and upload A once; ||A||^2 (||A D||^2 for z-space
+            # trial steps) depends on A alone: one collective power
+            # iteration here, none per request
+            self._dp, self._part = shard_problem(problem, mesh, dtype=dtype,
+                                                 equilibrate=equilibrate)
+            power = power_lipschitz_z if uses_zspace(method, line_search) else power_lipschitz
+            self._lip = power(self._dp)
         else:
             self._dp = L.prepare(problem, dtype=dtype, equilibrate=equilibrate,
                                  device=self.device)
@@ -125,12 +147,37 @@ class Endpoint:
         refine_tol = kw.pop("refine_tol", None)
         if refine_tol is not None and refine <= 0:
             refine = DEFAULT_REFINE_ROUNDS  # refine_tol alone must not skip the polish
+        if self.mesh is not None:
+            return self._solve_mesh(b, tol, max_iter, x0, refine, refine_tol, **kw)
         dp = self._with_b(b)
         res = solve(dp, method=self.method, line_search=self.line_search, tol=tol,
                     max_iter=max_iter, chunk=self.chunk, dtype=self.dtype, x0=x0, **kw)
         if refine > 0:
             prob = replace(self._problem, b=np.asarray(b, np.float64))
             res = refine_polish(prob, dp, res, rounds=refine, target_rel_gap=refine_tol)
+        return res
+
+    def _solve_mesh(self, b, tol, max_iter, x0, refine, refine_tol, **kw) -> SolveResult:
+        """A request on the mesh: this rank's scenarios of b uploaded into the
+        sharded problem, the solve with the endpoint's Lipschitz estimate, and
+        the gathered result polished on the host against this b."""
+        from .parallel.mesh import SCENARIO_AXIS
+        from .parallel.sharding import solve_sharded, with_rank_rhs
+
+        single = b.ndim == 1
+        B = np.atleast_2d(b)
+        ns = self.mesh.shape[SCENARIO_AXIS]
+        if B.shape[0] % ns:
+            raise ValueError(f"batch width {B.shape[0]} not divisible by the mesh's scenario "
+                             f"axis ({ns}); pad the batch or use scenario=1")
+        dp = with_rank_rhs(self._dp, B, self.mesh)
+        res = solve_sharded((dp, self._part, single), self.mesh, method=self.method,
+                            line_search=self.line_search, tol=tol, max_iter=max_iter,
+                            chunk=self.chunk, dtype=self.dtype, x0=x0, lipschitz=self._lip,
+                            **kw)
+        if refine > 0:
+            prob = replace(self._problem, b=np.asarray(b, np.float64))
+            res = refine_polish(prob, None, res, rounds=refine, target_rel_gap=refine_tol)
         return res
 
     def _solve_eq(self, b, tol, max_iter, x0, **kw) -> SolveResult:
@@ -146,8 +193,11 @@ class Endpoint:
         # opts out per request.
         sens = kw.pop("sensitivity", True)
         if sens and warm is not None and x0 is None and "rho" in warm:
-            fast = solve_eq_sensitivity(prob, warm["x"], rho=warm["rho"],
-                                        eq_tol=kw.get("eq_tol", tol))
+            # on a mesh of several processes rank 0 walks and every rank
+            # takes its answer: a rank that fell through alone to the AL
+            # solve would wait in its collectives
+            fast = _on_rank0(self.mesh, lambda: solve_eq_sensitivity(
+                prob, warm["x"], rho=warm["rho"], eq_tol=kw.get("eq_tol", tol)))
             if fast is not None:
                 self._eq_warm[b.shape[:-1]] = {"lam": fast.eq_lam, "rho": fast.eq_rho,
                                                "x": np.asarray(fast.x)}
@@ -164,7 +214,7 @@ class Endpoint:
         res = solve_equality_constrained(
             prob, method=self.method, tol=tol, max_iter=max_iter, chunk=self.chunk,
             line_search=self.line_search, dtype=self.dtype, op_cache=self._eq_ops,
-            device=self.device, **kw)
+            mesh=self.mesh, device=self.device, **kw)
         if self.warm_start and res.converged:
             self._eq_warm[b.shape[:-1]] = {"lam": res.eq_lam, "rho": res.eq_rho,
                                            "x": np.asarray(res.x)}
@@ -179,6 +229,25 @@ class Endpoint:
                        outer_iters=1, inner_iters=self.chunk)
         else:
             self.solve(np.zeros(shape, np.float32), tol=0.0, max_iter=self.chunk)
+
+
+def _world(mesh) -> int:
+    """Processes of the mesh's world (1 without a mesh)."""
+    import torch.distributed as dist
+
+    return 1 if mesh is None else dist.get_world_size()
+
+
+def _on_rank0(mesh, fn):
+    """``fn()`` on rank 0 of a mesh of several processes, its result sent to
+    every rank; ``fn()`` itself without a mesh or in a world of one."""
+    import torch.distributed as dist
+
+    if _world(mesh) == 1:
+        return fn()
+    box = [fn() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def _slice_result(res: SolveResult, i: int) -> SolveResult:
@@ -220,11 +289,29 @@ class BatchQueue:
     CUDA device is per thread).  Pad scenarios are copies of the first
     request's b, so every lane converges at the same rate.  A failed batch
     sets its exception on every waiting future.
+
+    Over a mesh endpoint of several processes every rank builds its queue,
+    and a batch must be the same on every rank, yet it depends on when the
+    requests arrive.  So rank 0 alone takes requests (``submit`` elsewhere
+    raises) and composes the batches, and its worker sends each batch's
+    right-hand sides to the other ranks' workers, which make the same
+    ``Endpoint.solve`` (their results are dropped).  While no request comes,
+    rank 0 sends an idle message every second so that no rank waits
+    in a collective longer than that.  ``close`` on rank 0 stops every
+    rank's worker; ``close`` on another rank waits for that.  The reference
+    runs one controller, whose single queue does this implicitly; this is
+    its counterpart, not a new feature.  No other collective may run on the
+    endpoint's group while the queue is open.
     """
+
+    _IDLE, _STOP = -1, 0  # header widths of the messages that carry no batch
+    _IDLE_SECS = 1.0
 
     def __init__(self, endpoint: Endpoint, max_batch: int = 32,
                  max_wait_ms: float = 20.0, tol: float = 1e-6,
                  max_iter: int = 10_000, **solve_kw):
+        import torch.distributed as dist
+
         self.endpoint = endpoint
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1e3
@@ -233,21 +320,48 @@ class BatchQueue:
         self._stop = threading.Event()
         self.batches_run = 0
         self.requests_served = 0
-        self._worker = threading.Thread(target=self._run, daemon=True)
+        # several processes: rank 0 decides, the others follow its messages
+        self._ranks = _world(endpoint.mesh)
+        self._leader = self._ranks == 1 or dist.get_rank() == 0
+        self._worker = threading.Thread(
+            target=self._run if self._leader else self._follow, daemon=True)
         self._worker.start()
 
     def submit(self, b: np.ndarray) -> Future:
+        if not self._leader:
+            raise RuntimeError("BatchQueue over a mesh: submit requests on rank 0; the other "
+                               "ranks' queues follow its batches")
         fut: Future = Future()
         self._q.put((np.asarray(b, np.float32), fut))
         return fut
 
+    def _send(self, width: int, S: int = 0, bs=None) -> None:
+        """Rank 0: a message to the other ranks' workers (a header, then the
+        batch's right-hand sides when it carries one)."""
+        import torch.distributed as dist
+
+        if self._ranks == 1:
+            return
+        dist.broadcast(torch.tensor([width, S], dtype=torch.int64), src=0)
+        if width > 0:
+            dist.broadcast(torch.from_numpy(np.ascontiguousarray(np.stack(bs))), src=0)
+
+    def _solve_batch(self, bs):
+        if len(bs) == 1:
+            return self.endpoint.solve(bs[0], **self._solve_kw)
+        return self.endpoint.solve(np.stack(bs), **self._solve_kw)
+
     def _run(self):
         if self.endpoint.device.type == "cuda":
             torch.cuda.set_device(self.endpoint.device)
+        idle_since = time.monotonic()
         while not self._stop.is_set():
             try:
                 first = self._q.get(timeout=0.05)
             except queue.Empty:
+                if time.monotonic() - idle_since >= self._IDLE_SECS:
+                    self._send(self._IDLE)
+                    idle_since = time.monotonic()
                 continue
             batch = [first]
             deadline = time.monotonic() + self.max_wait
@@ -265,11 +379,9 @@ class BatchQueue:
             S_pad = 1 << (S - 1).bit_length()
             bs = bs + [bs[0]] * (S_pad - S)
             try:
-                if S_pad == 1:
-                    results = [self.endpoint.solve(bs[0], **self._solve_kw)]
-                else:
-                    res = self.endpoint.solve(np.stack(bs), **self._solve_kw)
-                    results = [_slice_result(res, i) for i in range(S)]
+                self._send(S_pad, S, bs)
+                res = self._solve_batch(bs)
+                results = [res] if S_pad == 1 else [_slice_result(res, i) for i in range(S)]
                 for (_, fut), r in zip(batch, results):
                     fut.set_result(r)
             except Exception as exc:  # propagate to every waiter
@@ -278,7 +390,37 @@ class BatchQueue:
                         fut.set_exception(exc)
             self.batches_run += 1
             self.requests_served += S
+            idle_since = time.monotonic()
+        self._send(self._STOP)
+
+    def _follow(self):
+        """Another rank: make the solve of every batch rank 0 sends, until it
+        sends the stop."""
+        import torch.distributed as dist
+
+        if self.endpoint.device.type == "cuda":
+            torch.cuda.set_device(self.endpoint.device)
+        m = self.endpoint.num_rows
+        while True:
+            head = torch.empty(2, dtype=torch.int64)
+            dist.broadcast(head, src=0)
+            width, S = (int(v) for v in head)
+            if width == self._STOP:
+                break
+            if width == self._IDLE:
+                continue
+            bs = torch.empty((width, m), dtype=torch.float32)
+            dist.broadcast(bs, src=0)
+            try:
+                self._solve_batch(list(bs.numpy()))
+            except Exception:  # noqa: BLE001 - rank 0's futures carry the failure
+                pass
+            self.batches_run += 1
+            self.requests_served += S
 
     def close(self, timeout: float = 10.0):
-        self._stop.set()
+        """Stop the worker (on rank 0 of a mesh: every rank's worker; on
+        another rank: wait until rank 0 closes its queue)."""
+        if self._leader:
+            self._stop.set()
         self._worker.join(timeout=timeout)

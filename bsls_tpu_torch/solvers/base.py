@@ -39,9 +39,9 @@ step goes through the collective products and inner products of
 ``ops/layout.py``.
 
 Counterpart of ``bsls_tpu/solvers/base.py`` for all six solver families
-(``_get_solver``), certify, refine, checkpoint/resume, the
-equality-constrained path on one device and the unconstrained solve on a
-mesh.  The equality-constrained path on a mesh is not ported yet.
+(``_get_solver``), certify, refine, checkpoint/resume, and the
+unconstrained and the equality-constrained solve on one device and on a
+mesh.
 """
 from __future__ import annotations
 
@@ -306,16 +306,6 @@ def _get_solver(method: str):
     if method not in table:
         raise KeyError(f"unknown method {method!r}; options: {sorted(table)}")
     return table[method]
-
-
-def _reject_unported(**given):
-    """Options of ``bsls_tpu`` whose part is not ported yet: the
-    equality-constrained path on a mesh."""
-    for name, value in given.items():
-        if value:
-            raise NotImplementedError(
-                f"{name}=... of an equality-constrained solve is not ported yet "
-                "(later slice: distribution, the equality-constrained mesh branches)")
 
 
 def _warm_up(device: torch.device, first_launch: Callable[[], Any]) -> None:
@@ -750,12 +740,11 @@ def solve(
     is then its total inner budget, ``refine``/``refine_tol`` its float64
     finishing outers and certified polish, the checkpoint options act per
     outer iteration, and the result carries ``eq_violation``, ``eq_lam`` and
-    ``eq_rho``.  ``space``, ``callback``, ``certify``, ``lipschitz`` and a
-    ``stop_rule`` other than "auto" are rejected there, and ``mesh`` is not
-    ported yet.
+    ``eq_rho``; with ``mesh`` (and ``shard_rows``) its inner solves run on the
+    mesh.  ``space``, ``callback``, ``certify``, ``lipschitz`` and a
+    ``stop_rule`` other than "auto" are rejected there.
     """
     if isinstance(problem, Problem) and problem.C is not None:
-        _reject_unported(mesh=mesh is not None, shard_rows=shard_rows)
         from .eq_constrained import solve_equality_constrained
 
         # the AL outer loop supports a subset of solve()'s surface: reject
@@ -777,7 +766,7 @@ def solve(
             lbfgs_mem=lbfgs_mem, x0=x0, refine=refine, refine_tol=refine_tol,
             metrics=metrics, checkpoint_path=checkpoint_path,
             checkpoint_every=checkpoint_every, checkpoint_keep=checkpoint_keep,
-            resume=resume, device=device,
+            resume=resume, mesh=mesh, shard_rows=shard_rows, device=device,
         )
     if refine_tol is not None and refine == 0:
         # certified mode with no explicit round cap: default the cap instead

@@ -30,9 +30,10 @@ The host halves (``prox_bpp_polish``, ``_face_pcg``, ``eq_multiplier_polish``,
 of ``bsls_tpu/solvers/eq_constrained.py``.  One intended deviation:
 ``_face_pcg``'s ``_ggt_factors`` raises, naming the block, where a block has
 no positive weight (the reference clamps it at 1e-300).  The device half,
-``solve_equality_constrained``, runs on one device and checkpoints at outer
-granularity; its mesh branches raise ``NotImplementedError`` naming the slice
-that brings them.
+``solve_equality_constrained``, runs on one device or on a
+``torch.distributed`` mesh (``mesh=``: the stacked operator sharded by
+column, or with ``shard_rows`` by row, each inner solve
+``parallel.solve_sharded``) and checkpoints at outer granularity.
 """
 from __future__ import annotations
 
@@ -65,17 +66,42 @@ def _violation(cx_d: np.ndarray, d: np.ndarray, p: int) -> float:
     return float(np.abs(cx_d).max()) / max(1.0, float(np.abs(d).max()))
 
 
-def op_cache_key(problem: Problem, dtype, method: str, line_search: str, device) -> tuple:
+def op_cache_key(problem: Problem, dtype, method: str, line_search: str, device, mesh=None,
+                 shard_rows: bool = False) -> tuple:
     """The ``op_cache`` entry of ``solve_equality_constrained`` for this
     instance: keyed on the operator identity (the A/C objects, stable when a
     caller swaps only the RHS with ``dataclasses.replace``), the dtype, the
     batch shape, the trial-step space (z-space inners cache the z-curvature
-    bounds) and the device, so that a dict shared across instances or
-    devices never hands back the wrong prepared operator."""
+    bounds) and the device, and on a mesh on the mesh and ``shard_rows``, so
+    that a dict shared across instances, devices or meshes never hands back
+    the wrong prepared operator."""
     from .base import uses_zspace
 
-    return ("op", id(problem.A), id(problem.C), str(dtype), np.shape(problem.b),
-            uses_zspace(method, line_search), str(L.resolve_device(device)))
+    key = ("op", id(problem.A), id(problem.C), str(dtype), np.shape(problem.b),
+           uses_zspace(method, line_search), str(L.resolve_device(device)))
+    return key if mesh is None else key + ("mesh", id(mesh), bool(shard_rows))
+
+
+def _from_rank0(mesh, *values):
+    """On a mesh of several processes, rank 0's values of these float64 host
+    arrays and scalars, broadcast to every rank, so that every decision of
+    the outer loop (the multipliers, rho, the violation, the stop streak,
+    refine's guard) is taken on the same numbers on every rank: a rank on
+    another branch would wait alone in a collective.  Without a mesh, or in
+    a world of one, the values themselves."""
+    import torch.distributed as dist
+
+    if mesh is None or dist.get_world_size() == 1:
+        return values
+    arrays = [np.asarray(v, np.float64) for v in values]
+    flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrays]))
+    dist.broadcast(flat, src=0)
+    out, off = [], 0
+    for v, a in zip(values, arrays):
+        got = flat[off:off + a.size].numpy().reshape(a.shape)
+        off += a.size
+        out.append(got.copy() if isinstance(v, np.ndarray) else type(v)(got))
+    return tuple(out)
 
 
 def solve_equality_constrained(
@@ -134,37 +160,59 @@ def solve_equality_constrained(
     (rho - rho_base) lam_max(C^T C), in x- and z-space alike; the block
     equilibration stays that of the first outer's rho.
 
+    ``mesh`` (``parallel.make_mesh``; every rank calls with the same
+    arguments and gets the same result) runs each inner solve with
+    ``parallel.solve_sharded`` on the stacked operator, sharded by column or,
+    with ``shard_rows``, by row (each part padded to the block axis on its
+    own, the stacked RHS interleaved).  ``prepared`` is then ``(dp, part,
+    mesh)``, this rank's tile, built once with its two collective power
+    iterations; each outer swaps the penalty scale and uploads the rank's
+    slice of the stacked RHS.  The host state (multipliers, rho, violation,
+    stop streak, refine's guard) is rank 0's, broadcast after each update,
+    so that every rank takes every decision alike.  A mesh with ``row > 1``
+    raises, as in the reference; ``shard_rows`` needs a mesh.
+
     ``metrics`` receives one "outer" record per outer iteration (violation,
     rho after the update and ``inner_rho`` the inner solve used, inner
     iterations, objective, and the seconds of the inner solve and of the
-    host multiplier update) on top of the inner solves' per-chunk records.
+    host multiplier update) on top of the inner solves' per-chunk records;
+    on a mesh, rank 0's only.
 
     ``refine=K`` runs K float64 AL finishing outers (``refine_polish`` on the
-    stacked problem, then the multiplier update in float64); ``refine_tol``
-    runs the certified finisher (``prox_bpp_polish``, then
-    ``eq_multiplier_polish`` where the walk does not certify) and reports
-    the Lagrangian dual bound as ``refine_fw_gap``.
+    stacked problem, then the multiplier update in float64; on a mesh the
+    gathered x is polished on the host); ``refine_tol`` runs the certified
+    finisher (``prox_bpp_polish``, then ``eq_multiplier_polish`` where the
+    walk does not certify) and reports the Lagrangian dual bound as
+    ``refine_fw_gap``.
 
     ``checkpoint_path``/``checkpoint_every``/``checkpoint_keep``/``resume``
     checkpoint at OUTER granularity (``checkpoint_every`` counts outer
     iterations): the state is ``{"lam", "x"}`` in float64 with the outer
     index, rho, the violation and the inner iterations so far in its meta;
-    resume replays the multipliers and warm-starts the next outer.  A
-    checkpoint whose inner iterations already meet ``max_iter`` comes back
-    as its x with ``stop_reason`` "budget_exhausted".
-
-    ``mesh``/``shard_rows`` raise ``NotImplementedError``: their slice is not
-    ported yet.
+    resume replays the multipliers and warm-starts the next outer.  On a mesh
+    every rank writes its own file and a resume takes the newest outer that
+    every rank holds (``parallel/sharding.py``).  A checkpoint whose inner
+    iterations already meet ``max_iter`` comes back as its x with
+    ``stop_reason`` "budget_exhausted".
     """
     from .base import (
-        SolveResult, _reject_unported, power_lipschitz, power_lipschitz_z, refine_polish,
-        solve, uses_zspace,
+        SolveResult, power_lipschitz, power_lipschitz_z, refine_polish, solve, uses_zspace,
     )
 
-    _reject_unported(mesh=mesh is not None, shard_rows=shard_rows)
     if problem.C is None:
         raise ValueError("problem has no equality constraints")
-    dev = L.resolve_device(device)
+    if mesh is None and shard_rows:
+        raise ValueError("shard_rows requires a mesh")
+    if mesh is not None:
+        from ..parallel import sharding as SH
+        from ..parallel.mesh import BLOCK_AXIS, ROW_AXIS
+
+        if mesh.shape[ROW_AXIS] > 1:
+            raise ValueError("pre-sharded solves do not support a 2-D grid: run the "
+                             "equality-constrained loop on a mesh with row=1")
+        dev = mesh.device
+    else:
+        dev = L.resolve_device(device)
 
     C = problem.C
     b = np.asarray(problem.b, dtype=np.float64)
@@ -193,11 +241,25 @@ def solve_equality_constrained(
     viol = np.inf
     total_iters = 0
     start_outer = 0
+    rank0 = mesh is None or mesh.rank == 0
+    ck_like = {"lam": lam, "x": np.zeros((S, n) if multi else n)}
+
+    def shard_info():
+        """A mesh rank's checkpoint: the whole host state, every leaf whole."""
+        import torch.distributed as dist
+
+        return {"rank": dist.get_rank(), "world": dist.get_world_size(),
+                "mesh": dict(mesh.shape),
+                "leaves": [[[0] * v.ndim, list(v.shape)] for _, v in sorted(ck_like.items())]}
+
     if resume and checkpoint_path:
-        ck = latest_checkpoint(checkpoint_path)
-        if ck:
-            like = {"lam": lam, "x": np.zeros((S, n) if multi else n)}
-            ck_state, meta = load_state(ck, like)
+        if mesh is not None:
+            ck_state, meta = SH._resume(checkpoint_path, ck_like, shard_info())
+            ck_state = ck_state if meta else None  # {}: no checkpoint yet
+        else:
+            ck = latest_checkpoint(checkpoint_path)
+            ck_state, meta = load_state(ck, ck_like) if ck else (None, {})
+        if ck_state is not None:
             lam, x0 = ck_state["lam"], ck_state["x"]
             rho = float(meta.get("rho", rho))
             viol = float(meta.get("viol", viol))
@@ -211,23 +273,51 @@ def solve_equality_constrained(
     power = power_lipschitz_z if uses_zspace(method, line_search) else power_lipschitz
     if op_cache is None:
         op_cache = {}
-    key = op_cache_key(problem, dtype, method, line_search, dev)
-    # an entry holds the A and C it was prepared from: their ids stay taken
-    # while the entry lives, and an entry of other objects is not used
+    key = op_cache_key(problem, dtype, method, line_search, dev, mesh, shard_rows)
+    # an entry holds the A and C it was prepared from (and on a mesh the
+    # mesh): their ids stay taken while the entry lives, and an entry of
+    # other objects is not used
     dp_cache, rho_base, L_base, LC, A_c, C_c = op_cache.get(key, (None,) * 6)
-    if A_c is not problem.A or C_c is not problem.C:
+    if (A_c is not problem.A or C_c is not problem.C
+            or (mesh is not None and dp_cache is not None and dp_cache[2] is not mesh)):
         dp_cache = None
 
     def stacked_rhs(rho_now):
         sr_now = np.sqrt(rho_now)
         return sr_now, np.concatenate([b, sr_now * (d - lam / rho_now)], axis=-1)
 
+    def stacked_problem(sr_now, b_st):
+        return Problem(A=VStackMatrix(top=problem.A, bottom=ScaledMatrix(C, sr_now)),
+                       b=b_st, partition=problem.partition, name=problem.name + "+eq")
+
     def on_device(dp, sr_now, b_st):
-        """The cached stacked operator with this penalty and this RHS."""
-        return dc_replace(
-            dp, A=dc_replace(dp.A, bottom_scale=torch.tensor(sr_now, dtype=dp.b.dtype,
-                                                            device=dp.device)),
-            b=torch.as_tensor(b_st, dtype=dp.b.dtype).to(dp.device))
+        """The cached stacked operator with this penalty and this RHS (on a
+        mesh: this rank's slice of it, interleaved under row sharding)."""
+        A_now = dc_replace(dp.A, bottom_scale=torch.tensor(sr_now, dtype=dp.b.dtype,
+                                                           device=dp.device))
+        if mesh is None:
+            return dc_replace(dp, A=A_now, b=torch.as_tensor(b_st, dtype=dp.b.dtype).to(dp.device))
+        b_up = np.atleast_2d(b_st)
+        if shard_rows:
+            m_top = problem.A.shape[0]
+            b_up = SH.interleave_stacked_rows(b_up[:, :m_top], b_up[:, m_top:],
+                                              mesh.shape[BLOCK_AXIS])
+        return SH.with_rank_rhs(dc_replace(dp, A=A_now), b_up, mesh)
+
+    def build(sr_now, b_st):
+        """The stacked operator, prepared (on a mesh: this rank's tile) with
+        its two power iterations: L at this rho, and lam_max(C^T C) on the
+        bottom part alone (the same equilibrated encoding, unit scale)."""
+        stacked = stacked_problem(sr_now, b_st)
+        if mesh is None:
+            dp = L.prepare(stacked, dtype=dtype, device=dev)
+        elif shard_rows:
+            dp, part = SH.shard_problem_rows(stacked, mesh, dtype=dtype)
+        else:
+            dp, part = SH.shard_problem(stacked, mesh, dtype=dtype, layout="gather")
+        L_top = power(dp)
+        L_bot = power(dc_replace(dp, A=dp.A.bottom))
+        return (dp if mesh is None else (dp, part, mesh)), L_top, L_bot
 
     result = None
     ok_streak = 0
@@ -239,28 +329,21 @@ def solve_equality_constrained(
         sr, b_stacked = stacked_rhs(rho)
         x_prev = x0 if result is None else np.asarray(result.x)
         if dp_cache is None:
-            stacked = Problem(
-                A=VStackMatrix(top=problem.A, bottom=ScaledMatrix(C, sr)),
-                b=b_stacked,
-                partition=problem.partition,
-                name=problem.name + "+eq",
-            )
-            dp_cache = L.prepare(stacked, dtype=dtype, device=dev)
+            dp_cache, L_base, LC = build(sr, b_stacked)
             rho_base = rho
-            L_base = power(dp_cache)
-            # lam_max(C^T C) by power iteration on the bottom part alone
-            # (the same equilibrated encoding, unit scale)
-            LC = power(dc_replace(dp_cache, A=dp_cache.A.bottom))
             op_cache[key] = (dp_cache, rho_base, L_base, LC, problem.A, C)
+        inner = dict(method=method, tol=tol, max_iter=this_inner, chunk=chunk,
+                     line_search=line_search, step_size=step_size, dtype=dtype,
+                     x0=x_prev,  # warm start from the previous outer iterate
+                     lbfgs_mem=lbfgs_mem, metrics=metrics,
+                     lipschitz=L_base + max(0.0, rho - rho_base) * LC)
         t_solve = time.perf_counter()
-        result = solve(
-            on_device(dp_cache, sr, b_stacked), method=method, tol=tol,
-            max_iter=this_inner, chunk=chunk, line_search=line_search,
-            step_size=step_size, dtype=dtype,
-            x0=x_prev,  # warm start from the previous outer iterate
-            lbfgs_mem=lbfgs_mem, metrics=metrics,
-            lipschitz=L_base + max(0.0, rho - rho_base) * LC,
-        )
+        if mesh is None:
+            result = solve(on_device(dp_cache, sr, b_stacked), **inner)
+        else:
+            dp_sh, part_sh, _ = dp_cache
+            result = SH.solve_sharded((on_device(dp_sh, sr, b_stacked), part_sh, not multi),
+                                      mesh, **inner)
         t_host = time.perf_counter()
         total_iters += result.iterations
         x = np.asarray(result.x, dtype=np.float64)
@@ -271,8 +354,13 @@ def solve_equality_constrained(
         if new_viol > 0.25 * viol and new_viol > eq_tol:
             rho *= rho_growth
         viol = new_viol
+        # stop only after two consecutive outers with constraints holding and
+        # the inner subproblem solved to optimality (the second pass lets the
+        # multiplier update settle the objective)
+        ok_streak = ok_streak + 1 if (viol <= eq_tol and result.converged) else 0
+        lam, rho, viol, ok_streak = _from_rank0(mesh, lam, rho, viol, ok_streak)
         t_end = time.perf_counter()
-        if metrics is not None:
+        if metrics is not None and rank0:
             metrics.log("outer", outer=outer + 1, viol=viol, rho=rho, inner_rho=rho_inner,
                         inner_iters=int(result.iterations),
                         f=np.asarray(problem.objective_np(x)).tolist(),
@@ -281,11 +369,7 @@ def solve_equality_constrained(
             save_state(checkpoint_path, {"lam": lam, "x": x},
                        meta={"iteration": outer + 1, "rho": rho, "viol": viol,
                              "total_iters": total_iters},
-                       keep=checkpoint_keep)
-        # stop only after two consecutive outers with constraints holding and
-        # the inner subproblem solved to optimality (the second pass lets the
-        # multiplier update settle the objective)
-        ok_streak = ok_streak + 1 if (viol <= eq_tol and result.converged) else 0
+                       keep=checkpoint_keep, shard=None if mesh is None else shard_info())
         if ok_streak >= 2:
             break
     if result is None:
@@ -309,7 +393,8 @@ def solve_equality_constrained(
     # removes the fp32 precision floor once the AL has essentially converged
     # (violation ~1e-7 -> ~5e-13); it does not rescue an AL that stopped far
     # from the constrained optimum on an ill-conditioned instance
-    # (oracle_solve_eq or refine_tol do that).
+    # (oracle_solve_eq or refine_tol do that).  On a mesh the result is
+    # already gathered on every rank, and the host float64 PCG polishes it.
     if refine > 0:
         x = np.asarray(result.x, np.float64)
         # feasibility guard: the exact subproblem optimum can be LESS
@@ -320,26 +405,23 @@ def solve_equality_constrained(
         refine_wall = 0.0
         for _ in range(refine):
             sr, b_stacked = stacked_rhs(rho)
-            host_stacked = Problem(
-                A=VStackMatrix(top=problem.A, bottom=ScaledMatrix(C, sr)),
-                b=b_stacked,
-                partition=problem.partition,
-                name=problem.name + "+eq",
-            )
             # no prepared operator when the budget ran out before any outer:
             # the host float64 PCG path polishes instead
-            dp_pol = None if dp_cache is None else on_device(dp_cache, sr, b_stacked)
+            dp_pol = (None if mesh is not None or dp_cache is None
+                      else on_device(dp_cache, sr, b_stacked))
             seed = dc_replace(result, x=x)
-            polished = refine_polish(host_stacked, dp_pol, seed, rounds=2)
+            polished = refine_polish(stacked_problem(sr, b_stacked), dp_pol, seed, rounds=2)
             refine_wall += polished.refine_secs  # every round's wall counts
             xn = np.asarray(polished.x, np.float64)
             total_iters = total_iters + (polished.iterations - seed.iterations)
-            if not np.any(np.abs(xn - x) > 0):
+            moved, = _from_rank0(mesh, float(np.any(np.abs(xn - x) > 0)))
+            if not moved:
                 break  # polish rejected everything: do NOT drift lam
             x = xn
             cx_d = _c_matvec(C, x) - d
             lam = lam + rho * cx_d
             viol = _violation(cx_d, d, p)
+            x, lam, viol = _from_rank0(mesh, x, lam, viol)
             if viol <= 1e-12:
                 break
         if viol > viol_before:
@@ -376,6 +458,7 @@ def solve_equality_constrained(
             bound_fit = eq_dual_bound(problem, x_cur, lam_fit)
             if bound_fit < bound:
                 bound = bound_fit
+        x_cur, lam, viol, bound = _from_rank0(mesh, x_cur, lam, viol, bound)
         result = dc_replace(
             result, x=x_cur,
             refine_secs=result.refine_secs + (time.perf_counter() - t_rt))

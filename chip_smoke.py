@@ -45,8 +45,20 @@ through ``prepare``/``solve``:
   1M blocks of 8, 48M nonzeros, S = 4): the unsharded solve against a world
   of one over NCCL in this process (``mesh_world1``); four rank processes on
   the one card over gloo, block 2 x scenario 2 (``mesh_ranks``, a
-  correctness run); ``dryrun_multichip(4, device="cuda")`` (``mesh_dryrun``);
-  kernels 1-4 held against their plain versions at rank shard shapes;
+  correctness run); ``dryrun_multichip(4, device="cuda")`` (``mesh_dryrun``,
+  17 cases); kernels 1-4 held against their plain versions at rank shard
+  shapes;
+* the equality-constrained loop on a mesh at full width (traffic_like x 128):
+  a world of one over NCCL by column and by row against the unsharded loop
+  of ``solve_eq`` with its Lipschitz pair, and the pava line search at S = 4
+  (``mesh_eq_world1``); four rank processes on the card over gloo, block 2 x
+  scenario 2, by column and by row at a reduced budget (``mesh_eq_ranks``);
+  kernel 1 at a rank's tile;
+* serving on a world of one (``serve_mesh``): an ``Endpoint(mesh=)`` of
+  medium x 128 against the unsharded endpoint, eq mesh endpoints of the
+  preset ``traffic`` (a request on the sensitivity fast path from the warm
+  x) and of traffic_like x 128 (one stacked operator for two requests), and a
+  ``BatchQueue`` over the mesh endpoint (``serve_mesh_queue``);
 * in a fresh process, the first chunk of the exact path against the second:
   the kernel library's load and the first launches come before the clock.
 
@@ -1282,6 +1294,7 @@ EQ_SCENARIOS = 128
 EQ_BUDGET = 2000  # total inner iterations of solve_eq
 EQ_INNER = 400  # at most this many per outer
 EQ_CROSS_ITERS = 100  # the first outer of the card-against-CPU check, S = 4
+EQ_PAVA_ITERS, EQ_PAVA_INNER = 400, 200  # solve_eq_pava and its mesh twin, S = 4
 
 
 class OuterRecords:
@@ -1425,6 +1438,9 @@ def phase_solve_eq(ctx):
     # launches per inner step
     prof = profile_steps(dp, "exact", iters=20)
     outer = rec.outer
+    ctx["eq_unsharded"] = {"outer": outer, "objective": res.objective, "x": res.x,
+                           "viol": res.eq_violation, "iterations": res.iterations,
+                           "consts": (rho_base, L_base, LC)}
     emit("solve_eq", instance=f"traffic_like(seed=0, num_blocks=10000, m=100000, num_eq=50) x {S}",
          shape=list(prob.A.shape), nnz=int(prob.A.nnz), C=list(prob.C.shape),
          buckets=[list(bk.mask.shape) for bk in dp.buckets], n_pf=int(dp.n_pf),
@@ -1472,7 +1488,7 @@ def phase_solve_eq(ctx):
     return counts
 
 
-def phase_solve_eq_pava(ctx, max_iter=400, inner=200):
+def phase_solve_eq_pava(ctx, max_iter=EQ_PAVA_ITERS, inner=EQ_PAVA_INNER):
     """The same instance at S = 4 with the pava line search: z-space inners,
     kernel 2 on the equality-constrained path; its step profiled."""
     from bsls_tpu_torch.utils.profiling import profile_steps
@@ -1486,7 +1502,10 @@ def phase_solve_eq_pava(ctx, max_iter=400, inner=200):
                                         op_cache=cache, metrics=rec, device=DEV)
     secs = time.perf_counter() - t0
     counts = bt.launch_counts()
-    (dp, _, L_base, LC, *_), = cache.values()
+    (dp, rho_base, L_base, LC, *_), = cache.values()
+    ctx["eq_pava_unsharded"] = {"outer": rec.outer, "objective": res.objective,
+                                "viol": res.eq_violation, "iterations": res.iterations,
+                                "consts": (rho_base, L_base, LC)}
     _check_simplices("solve_eq_pava", prob4, res.x)
     check(np.isfinite(res.eq_violation) and bool(np.isfinite(res.objective).all()),
           "solve_eq_pava: non-finite result")
@@ -1676,18 +1695,19 @@ def phase_serve(prob, base):
     return counts
 
 
-def phase_serve_queue(prob, base, threads=8, per_thread=8, width=32):
+def phase_serve_queue(prob, base, threads=8, per_thread=8, width=32, mesh=None):
     """``BatchQueue`` over an endpoint of the same instance (built with the
     first 32 rows of ``prob``'s b): 8 client threads, each sending its
     requests one after the other, 64 single-RHS requests in all; each answer
-    against that scenario's objective in one batched solve of all 64."""
+    against that scenario's objective in one batched solve of all 64 (with
+    ``mesh``: a mesh endpoint, and the batched solve on it)."""
     import threading
 
     t_phase = time.perf_counter()
     prob = dataclasses.replace(prob, b=np.asarray(prob.b)[:width], x_true=None)
     batch = bt.synthetic.with_scenarios(base, threads * per_thread, seed=5)
     B = np.asarray(batch.b)
-    ep = bt.Endpoint(prob, method="pgd", line_search="exact", chunk=100, device=DEV)
+    ep = bt.Endpoint(prob, method="pgd", line_search="exact", chunk=100, device=DEV, mesh=mesh)
     for w in (8, width):  # the widths the queue will send, first launches before traffic
         ep.warmup(w)
     q = bt.BatchQueue(ep, max_batch=width, max_wait_ms=20, tol=0.0, max_iter=SERVE_ITERS)
@@ -1719,14 +1739,18 @@ def phase_serve_queue(prob, base, threads=8, per_thread=8, width=32):
         raise errors[0]
     check(q.requests_served == len(B), f"serve_queue: served {q.requests_served} of {len(B)}")
     check(counts["proj_simplex_rows"] > 0, "serve_queue: proj_simplex_rows was not launched")
-    ref = bt.solve(batch, method="pgd", line_search="exact", tol=0.0, max_iter=SERVE_ITERS,
-                   chunk=100, device=DEV)
+    if mesh is None:
+        ref = bt.solve(batch, method="pgd", line_search="exact", tol=0.0,
+                       max_iter=SERVE_ITERS, chunk=100, device=DEV)
+    else:
+        ref = ep.solve(B, tol=0.0, max_iter=SERVE_ITERS)
     got = np.array([r.objective for r in out])
     diff = _rel_diff(got, ref.objective)
     check(diff <= 1e-4, f"serve_queue: answers differ from one batched solve by {diff:.2e}")
     check(all(r.x.shape == (prob.partition.n_flat,) for r in out), "serve_queue: x shape")
     lat_s = np.sort(np.asarray(lat))
-    emit("serve_queue", clients=threads, requests=len(B), max_batch=width, max_wait_ms=20,
+    emit("serve_queue" if mesh is None else "serve_mesh_queue", clients=threads,
+         requests=len(B), max_batch=width, max_wait_ms=20,
          iterations=SERVE_ITERS, batches_run=q.batches_run,
          mean_width=q.requests_served / q.batches_run,
          latency_p50_secs=float(np.percentile(lat_s, 50)),
@@ -1780,6 +1804,7 @@ def phase_serve_eq(ctx, perturb=0.02, target=1e-6):
           f"{orc.objective!r} ({rel2:.2e} relative)")
     check(r2.eq_violation <= 1e-6, f"serve_eq: request 2's violation {r2.eq_violation:.2e}")
     _check_simplices("serve_eq", prob, r2.x)
+    ctx["serve_eq_traffic"] = {"b2": b2, "oracle": orc.objective}
 
     # (b) the full-width instance: one stacked operator for both requests
     big = ctx["eq_prob"]
@@ -2110,15 +2135,34 @@ def check_pages_at_shard(ctx):
     return out
 
 
-def mesh_rank_child(rank, workdir):
-    """``--mesh-rank-child R DIR``: rank R of the mesh_ranks world (gloo on a
-    ``file://`` store in DIR, every rank on cuda:0).  Solves config 4 from
-    DIR/large.npz on a block 2 x scenario 2 mesh and writes DIR/rank{R}.json:
-    its launches, the host seconds in its collectives (each call's wait for
-    the card's prior work included), its timings and its (full) result."""
-    import torch.distributed as dist
-
+def mesh_large_rank(spec, workdir):
+    """A rank of mesh_ranks: config 4 from DIR/large.npz on a block 2 x
+    scenario 2 mesh, pgd/exact at mesh_world1's Lipschitz estimate."""
     from bsls_tpu_torch.models import Problem
+
+    t0 = time.perf_counter()
+    prob = Problem.load(os.path.join(workdir, "large.npz"))
+    load_secs = time.perf_counter() - t0
+    mesh = bt.make_mesh(block=2, scenario=2, device=DEV)
+    bt.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = bt.solve(prob, mesh=mesh, method="pgd", line_search="exact", tol=0.0,
+                   max_iter=MESH_RANK_ITERS, chunk=MESH_RANK_ITERS, lipschitz=spec["L"])
+    solve_secs = time.perf_counter() - t0
+    return {"coords": mesh.coords, "launches": bt.launch_counts(),
+            "loop_secs": float(np.sum(res.chunk_times)), "solve_secs": solve_secs,
+            "load_secs": load_secs, "objective": np.asarray(res.objective).tolist(),
+            "x_sum": float(np.sum(res.x))}
+
+
+def mesh_rank_child(rank, workdir):
+    """``--mesh-rank-child R DIR``: rank R of a world of MESH_RANKS processes,
+    every rank on cuda:0, over gloo on a ``file://`` store in DIR, running the
+    case that DIR/spec.json names (``large``: mesh_ranks; ``eq``:
+    mesh_eq_ranks).  Writes DIR/rank{R}.json: the case's results, the host
+    seconds in the rank's collectives (each call's wait for the card's prior
+    work included) and its peak memory."""
+    import torch.distributed as dist
 
     with open(os.path.join(workdir, "spec.json")) as fh:
         spec = json.load(fh)
@@ -2137,46 +2181,33 @@ def mesh_rank_child(rank, workdir):
                 coll["calls"] += 1
         return run
 
-    for name in ("all_reduce", "all_gather", "broadcast_object_list"):
+    for name in ("all_reduce", "all_gather", "broadcast", "broadcast_object_list"):
         setattr(dist, name, timed(getattr(dist, name)))
-    t0 = time.perf_counter()
-    prob = Problem.load(os.path.join(workdir, "large.npz"))
-    load_secs = time.perf_counter() - t0
-    mesh = bt.make_mesh(block=2, scenario=2, device=DEV)
-    bt.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = bt.solve(prob, mesh=mesh, method="pgd", line_search="exact", tol=0.0,
-                   max_iter=MESH_RANK_ITERS, chunk=MESH_RANK_ITERS, lipschitz=spec["L"])
-    solve_secs = time.perf_counter() - t0
-    out = {"rank": rank, "coords": mesh.coords, "launches": bt.launch_counts(),
-           "collective_secs": coll["secs"], "collective_calls": coll["calls"],
-           "loop_secs": float(np.sum(res.chunk_times)), "solve_secs": solve_secs,
-           "load_secs": load_secs, "objective": np.asarray(res.objective).tolist(),
-           "x_sum": float(np.sum(res.x)), "peak_gb": _peak_gb()}
+    case = {"large": mesh_large_rank, "eq": mesh_eq_rank}[spec["case"]]
+    out = {"rank": rank, **case(spec, workdir), "collective_secs": coll["secs"],
+           "collective_calls": coll["calls"], "peak_gb": _peak_gb()}
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
         json.dump(out, fh)
     dist.barrier()
     dist.destroy_process_group()
 
 
-def phase_mesh_ranks(ctx):
-    """Four rank processes on the one card over gloo (block 2 x scenario 2),
-    the same instance written once by this process: held against
-    mesh_world1's trace at 50 iterations.  A correctness run: four processes
-    share one card, so its rates are no scaling figure."""
+def run_rank_children(phase, spec, files):
+    """Write ``files`` ({name: arrays}) and spec.json into a temporary
+    directory, run MESH_RANKS ``--mesh-rank-child`` processes there (each
+    stopped by its PID at MESH_RANK_TIMEOUT) and return (every rank's
+    results, the seconds the files took to write, the phase's seconds)."""
     import tempfile
 
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
-    prob = ctx["large"]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        np.savez(os.path.join(tmp, "large.npz"), A_rows=prob.A.rows, A_vals=prob.A.vals,
-                 A_num_rows=np.array(prob.A.num_rows), b=prob.b,
-                 block_sizes=prob.partition.sizes, name=np.array(prob.name))
+        for name, arrays in files.items():
+            np.savez(os.path.join(tmp, name), **arrays)
         write_secs = time.perf_counter() - t0
         with open(os.path.join(tmp, "spec.json"), "w") as fh:
-            json.dump({"L": ctx["mesh_L"]}, fh)
+            json.dump(spec, fh)
         logs = [open(os.path.join(tmp, f"rank{r}.log"), "w") for r in range(MESH_RANKS)]
         procs = [subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"),
                                    "--mesh-rank-child", str(r), tmp], cwd=here,
@@ -2199,12 +2230,26 @@ def phase_mesh_ranks(ctx):
         for r, p in enumerate(procs):
             if p.returncode != 0:
                 with open(os.path.join(tmp, f"rank{r}.log")) as fh:
-                    raise PhaseFailed(f"mesh_ranks: rank {r} exited with {p.returncode}:\n"
+                    raise PhaseFailed(f"{phase}: rank {r} exited with {p.returncode}:\n"
                                       f"{fh.read()[-3000:]}")
         ranks = []
         for r in range(MESH_RANKS):
             with open(os.path.join(tmp, f"rank{r}.json")) as fh:
                 ranks.append(json.load(fh))
+    return ranks, write_secs, time.perf_counter() - t_phase
+
+
+def phase_mesh_ranks(ctx):
+    """Four rank processes on the one card over gloo (block 2 x scenario 2),
+    the same instance written once by this process: held against
+    mesh_world1's trace at 50 iterations.  A correctness run: four processes
+    share one card, so its rates are no scaling figure."""
+    prob = ctx["large"]
+    ranks, write_secs, secs = run_rank_children(
+        "mesh_ranks", {"case": "large", "L": ctx["mesh_L"]},
+        {"large.npz": dict(A_rows=prob.A.rows, A_vals=prob.A.vals,
+                           A_num_rows=np.array(prob.A.num_rows), b=prob.b,
+                           block_sizes=prob.partition.sizes, name=np.array(prob.name))})
     want = np.asarray(ctx["mesh_trace_at_rank_iters"], np.float64)
     f0 = np.asarray(ranks[0]["objective"], np.float64)
     rel = float(np.max(np.abs(f0 - want) / np.maximum(np.abs(want), 1e-30)))
@@ -2227,7 +2272,7 @@ def phase_mesh_ranks(ctx):
          per_rank=[{k: rk[k] for k in ("rank", "coords", "launches", "collective_secs",
                                        "collective_calls", "loop_secs", "solve_secs",
                                        "load_secs", "peak_gb")} for rk in ranks],
-         write_secs=write_secs, launches=launches, secs=time.perf_counter() - t_phase)
+         write_secs=write_secs, launches=launches, secs=secs)
     return launches
 
 
@@ -2241,7 +2286,7 @@ def phase_mesh_dryrun():
     t0 = time.perf_counter()
     out = dryrun_multichip(MESH_RANKS, device="cuda", timeout=400)
     cases = out["cases"]
-    check(len(cases) >= 14 and max(cases.values()) <= 1e-4, f"mesh_dryrun: {cases}")
+    check(len(cases) == 17 and max(cases.values()) <= 1e-4, f"mesh_dryrun: {cases}")
     for name in ("proj_simplex_rows", "pava_rows", "band_zmv", "band_grmv"):
         check(out["launches"].get(name, 0) > 0,
               f"mesh_dryrun: the ranks' sharded solves made no {name} launch")
@@ -2250,9 +2295,346 @@ def phase_mesh_dryrun():
     return {name: out["launches"].get(name, 0) for name in KERNELS}
 
 
+# ------------------------------------------- the equality-constrained mesh
+
+EQ_RANK_ITERS = 100  # mesh_eq_ranks: two outers of 50 at S = 128
+EQ_RANK_INNER = 50
+EQ_MESH_KW = dict(method="pgd", line_search="exact", eq_tol=1e-6, max_iter=EQ_BUDGET,
+                  inner_iters=EQ_INNER, chunk=100)
+# the reference's mesh-against-single-device limits: the objective of every
+# outer (tests/test_serving.py holds a mesh endpoint's so) and the violation,
+# max(1e-6, 3 x the single device's) (tests/test_sharding.py)
+EQ_MESH_RTOL = 1e-4
+
+
+def eq_on_mesh(prob, mesh, rows, consts, **kw):
+    """``solve_equality_constrained`` on ``mesh`` with the unsharded loop's
+    (rho_base, L_base, L_C) in its op_cache, so that the two loops take the
+    same steps: a first call of one inner iteration builds the rank's tile of
+    the stacked operator (and its own power iterations), whose constants are
+    then replaced.  Returns (result, outer records, the tile, its build
+    seconds, the second call's launches and seconds)."""
+    cache = {}
+    t0 = time.perf_counter()
+    bt.solve_equality_constrained(prob, mesh=mesh, shard_rows=rows, op_cache=cache,
+                                  method=kw["method"], line_search=kw["line_search"],
+                                  max_iter=1, inner_iters=1, chunk=1)
+    build_secs = time.perf_counter() - t0
+    (key, entry), = cache.items()
+    cache[key] = (entry[0], *consts, entry[4], entry[5])
+    rec = OuterRecords()
+    bt.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = bt.solve_equality_constrained(prob, mesh=mesh, shard_rows=rows, op_cache=cache,
+                                        metrics=rec, **kw)
+    secs = time.perf_counter() - t0
+    return res, rec.outer, entry[0][0], build_secs, bt.launch_counts(), secs
+
+
+def _outer_rel(outer, want):
+    """Largest relative difference of the per-outer objectives (every scenario)."""
+    a = np.array([o["f"] for o in outer], np.float64)
+    b = np.array([o["f"] for o in want], np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def phase_mesh_eq_world1(ctx):
+    """The eq loop on traffic_like x 128 at full width on a world of one over
+    NCCL, column-sharded and row-sharded, against the unsharded loop of
+    ``solve_eq`` (the same budget and Lipschitz pair): every outer's
+    objective and rho, the final violation; then the stacked step profiled,
+    the pava line search at S = 4 (kernel 2, the z-space pair) against
+    ``solve_eq_pava``, a reduced run that mesh_eq_ranks is held against, and
+    kernel 1 at a rank's tile of the block 2 x scenario 2 mesh."""
+    from bsls_tpu_torch.utils.profiling import profile_steps
+
+    t_phase = time.perf_counter()
+    prob, want = ctx["eq_prob"], ctx["eq_unsharded"]
+    mesh = bt.make_mesh(block=1, device=DEV)
+    runs, launches = {}, dict.fromkeys(KERNELS, 0)
+    for name, rows in (("col", False), ("rows", True)):
+        torch.cuda.reset_peak_memory_stats(DEV)
+        res, outer, dp, build_secs, counts, secs = eq_on_mesh(prob, mesh, rows, want["consts"],
+                                                              **EQ_MESH_KW)
+        for k, c in counts.items():
+            launches[k] += c
+        _check_simplices(f"mesh_eq_world1 {name}", prob, res.x)
+        rel = _outer_rel(outer, want["outer"])
+        rho, rho_want = [o["rho"] for o in outer], [o["rho"] for o in want["outer"]]
+        runs[name] = {
+            "outers": len(outer), "iterations": res.iterations, "rho_by_outer": rho,
+            "outer_objective_max_rel_diff": rel, "eq_violation": res.eq_violation,
+            "eq_violation_unsharded": want["viol"], "stop_reason": res.stop_reason,
+            "x_max_abs_diff": float(np.abs(res.x - want["x"]).max()),
+            "build_secs": build_secs, "secs": secs,
+            "aggregate_inner_iters_per_sec": EQ_SCENARIOS * res.iterations / sum(
+                o["solve_secs"] for o in outer),
+            "peak_gb": _peak_gb(), "launches": counts,
+            "tile_bytes": {"top": _tensor_bytes(dp.A.top), "bottom": _tensor_bytes(dp.A.bottom)}}
+        # the readings are printed with the line below, the checks after it
+        runs[name]["_checks"] = (rho == rho_want, rel, res.eq_violation)
+        ctx.setdefault("eq_mesh_tile", dp)
+    # the pava line search at S = 4: kernel 2 and the z-space Lipschitz pair
+    pava_want = ctx["eq_pava_unsharded"]
+    res4, outer4, dp4, _, counts4, secs4 = eq_on_mesh(
+        ctx["eq_prob4"], mesh, False, pava_want["consts"], method="pgd", line_search="pava",
+        max_iter=EQ_PAVA_ITERS, inner_iters=EQ_PAVA_INNER, chunk=100)
+    for k, c in counts4.items():
+        launches[k] += c
+    _check_simplices("mesh_eq_world1 pava", ctx["eq_prob4"], res4.x)
+    pava = {"iterations": res4.iterations, "eq_violation": res4.eq_violation,
+            "eq_violation_unsharded": pava_want["viol"],
+            "outer_objective_max_rel_diff": _outer_rel(outer4, pava_want["outer"]),
+            "secs": secs4, "launches": counts4}
+    # the reduced run the four ranks are held against
+    ranks_kw = dict(EQ_MESH_KW, max_iter=EQ_RANK_ITERS, inner_iters=EQ_RANK_INNER, chunk=50)
+    res_r, outer_r, *_ = eq_on_mesh(prob, mesh, False, want["consts"], **ranks_kw)
+    ctx["eq_ranks_want"] = {"objective": np.asarray(res_r.objective),
+                            "outer_f": [o["f"] for o in outer_r]}
+    dp = ctx["eq_mesh_tile"]
+    prof = profile_steps(dp, "exact", iters=20)
+    # kernel 1 at the tile of one rank of block 2 x scenario 2: half of each
+    # bucket's rows (w = 12 included), 64 scenarios
+    half = types.SimpleNamespace(buckets=tuple(
+        dataclasses.replace(bk, mask=bk.mask[: bk.mask.shape[0] // 2],
+                            sizes=bk.sizes[: bk.mask.shape[0] // 2],
+                            radius=bk.radius[: bk.mask.shape[0] // 2]) for bk in dp.buckets))
+    err, rows_at = check_rows_at("proj_simplex_rows", half, EQ_SCENARIOS // 2, seed=91)
+    emit("mesh_eq_world1", instance=f"traffic_like(seed=0, num_blocks=10000, m=100000, "
+         f"num_eq=50) x {EQ_SCENARIOS}", backend=torch.distributed.get_backend(),
+         mesh=dict(mesh.shape), budget=EQ_BUDGET, inner_iters_max=EQ_INNER,
+         lipschitz_pair_of_solve_eq=list(want["consts"]),
+         **{name: {k: v for k, v in r.items() if k != "_checks"} for name, r in runs.items()},
+         pava_s4=pava, launches=launches,
+         device_idle_share=prof["device_idle_share"],
+         device_busy_ms_per_inner_step=prof["device_busy_ms_per_iter"],
+         wall_ms_per_inner_step=prof["wall_ms_per_iter"],
+         launches_per_inner_step=prof["launches_per_iter"],
+         nccl_share_of_busy=prof.get("nccl_share_of_busy"),
+         largest_device_items_ms_per_step=[[k["name"][:60], k["ms_per_iter"],
+                                            k["launches_per_iter"]] for k in prof["kernels"][:8]],
+         kernel1_at_rank_tile={"max_abs_err": err, "by_bucket": rows_at},
+         secs=time.perf_counter() - t_phase)
+    for name, r in runs.items():
+        same_rho, rel, viol = r["_checks"]
+        check(same_rho, f"mesh_eq_world1 {name}: rho by outer {r['rho_by_outer']}")
+        check(rel <= EQ_MESH_RTOL, f"mesh_eq_world1 {name}: outer objectives {rel:.2e} "
+              f"relative off the unsharded loop's (limit {EQ_MESH_RTOL})")
+        check(viol <= max(1e-6, 3 * want["viol"]), f"mesh_eq_world1 {name}: violation {viol}")
+        check(r["launches"]["proj_simplex_rows"] >= r["iterations"] * len(dp.buckets),
+              f"mesh_eq_world1 {name}: {r['launches']['proj_simplex_rows']} projections")
+    check(counts4["pava_rows"] >= res4.iterations * len(dp4.buckets),
+          f"mesh_eq_world1 pava: {counts4['pava_rows']} pava_rows launches")
+    check(res4.eq_violation <= max(1e-6, 3 * pava_want["viol"]),
+          f"mesh_eq_world1 pava: violation {res4.eq_violation}")
+    return launches, err
+
+
+def mesh_eq_rank(spec, workdir):
+    """A rank of mesh_eq_ranks: the eq loop on traffic_like x 128 (from
+    DIR/eq.npz) over a block 2 x scenario 2 mesh, by column and by row, at
+    the reduced budget, with solve_eq's Lipschitz pair."""
+    from bsls_tpu_torch.models import Problem
+
+    prob = Problem.load(os.path.join(workdir, "eq.npz"))
+    mesh = bt.make_mesh(block=2, scenario=2, device=DEV)
+    kw = dict(EQ_MESH_KW, max_iter=EQ_RANK_ITERS, inner_iters=EQ_RANK_INNER, chunk=50)
+    out = {"coords": mesh.coords}
+    for name, rows in (("col", False), ("rows", True)):
+        res, outer, dp, build_secs, counts, secs = eq_on_mesh(prob, mesh, rows,
+                                                              spec["consts"], **kw)
+        out[name] = {"objective": np.asarray(res.objective).tolist(),
+                     "outer_f": [o["f"] for o in outer] if mesh.rank == 0 else None,
+                     "eq_violation": res.eq_violation, "rho": res.eq_rho,
+                     "x_sum": float(np.sum(res.x)), "launches": counts,
+                     "build_secs": build_secs, "secs": secs,
+                     "tile_rows": [list(bk.mask.shape) for bk in dp.buckets]}
+    return out
+
+
+def phase_mesh_eq_ranks(ctx):
+    """Four rank processes on the one card over gloo, block 2 x scenario 2,
+    the eq loop by column and by row at the reduced budget: every rank the
+    same result, held against mesh_eq_world1's reduced run.  A correctness
+    run, no scaling figure."""
+    prob = ctx["eq_prob"]
+    A = prob.A
+    arrays = dict(A_rows=A.rows, A_vals=A.vals, A_num_rows=np.array(A.num_rows), b=prob.b,
+                  block_sizes=prob.partition.sizes, C_dense=prob.C.data, d=prob.d,
+                  name=np.array(prob.name))
+    ranks, write_secs, secs = run_rank_children(
+        "mesh_eq_ranks", {"case": "eq", "consts": list(ctx["eq_unsharded"]["consts"])},
+        {"eq.npz": arrays})
+    want = ctx["eq_ranks_want"]
+    rels = {}
+    for name in ("col", "rows"):
+        f0 = np.asarray(ranks[0][name]["objective"], np.float64)
+        rels[name] = float(np.max(np.abs(f0 - want["objective"]) / np.abs(want["objective"])))
+    launches = dict.fromkeys(KERNELS, 0)
+    for rk in ranks:
+        for name in ("col", "rows"):
+            for k, c in rk[name]["launches"].items():
+                launches[k] += c
+    emit("mesh_eq_ranks", ranks=MESH_RANKS, mesh={"row": 1, "block": 2, "scenario": 2},
+         backend="gloo", device="cuda:0 (every rank)", iterations=EQ_RANK_ITERS,
+         inner_iters_max=EQ_RANK_INNER, rel_diff_vs_world1=rels,
+         per_rank=[{"rank": rk["rank"], "coords": rk["coords"],
+                    **{name: {k: rk[name][k] for k in ("eq_violation", "build_secs", "secs",
+                                                       "launches", "tile_rows")}
+                       for name in ("col", "rows")},
+                    "collective_secs": rk["collective_secs"],
+                    "collective_calls": rk["collective_calls"], "peak_gb": rk["peak_gb"]}
+                   for rk in ranks],
+         # the loops' seconds, their host updates and warm-up steps included
+         aggregate_inner_iters_per_sec={
+             name: EQ_SCENARIOS * EQ_RANK_ITERS / max(rk[name]["secs"] for rk in ranks)
+             for name in ("col", "rows")},
+         write_secs=write_secs, launches=launches, secs=secs)
+    for name in ("col", "rows"):
+        check(rels[name] <= EQ_MESH_RTOL, f"mesh_eq_ranks {name}: {rels[name]:.2e} relative off "
+              f"mesh_eq_world1's reduced run")
+        for rk in ranks:
+            check(rk[name]["objective"] == ranks[0][name]["objective"]
+                  and rk[name]["x_sum"] == ranks[0][name]["x_sum"]
+                  and rk[name]["rho"] == ranks[0][name]["rho"],
+                  f"mesh_eq_ranks {name}: rank {rk['rank']} returned another result")
+            check(rk[name]["launches"]["proj_simplex_rows"] > 0,
+                  f"mesh_eq_ranks {name}: rank {rk['rank']} made no projection launch")
+    return launches
+
+
+SERVE_EQ_BUDGET = 800  # serve_mesh's traffic_like x 128 requests: two outers of 400
+
+
+def phase_serve_mesh(ctx, prob, base):
+    """Serving on a world of one over NCCL: an ``Endpoint(mesh=)`` of medium x
+    128 answers three streamed requests, each held against the unsharded
+    endpoint with the mesh endpoint's Lipschitz estimate; two eq mesh
+    endpoints: the preset ``traffic`` (a certified request, then one on the
+    sensitivity fast path from the gathered warm x, against serve_eq's
+    oracle) and traffic_like x 128 (two requests on one stacked operator); a
+    ``BatchQueue`` over the mesh endpoint, 8 client threads, against one
+    batched solve on it."""
+    from bsls_tpu_torch.parallel import sharding as SH
+
+    t_phase = time.perf_counter()
+    mesh = bt.make_mesh(block=1, device=DEV)
+    t0 = time.perf_counter()
+    ep = bt.Endpoint(prob, method="pgd", line_search="exact", chunk=100, mesh=mesh)
+    build_secs = time.perf_counter() - t0
+    ep.warmup(SCENARIOS)
+    reqs = [np.asarray(bt.synthetic.with_scenarios(base, SCENARIOS, seed=s).b) for s in (2, 3, 4)]
+    bt.reset_launch_counts()
+    results, walls = [], []
+    for B in reqs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(ep.solve(B, tol=0.0, max_iter=SERVE_ITERS))
+        walls.append(time.perf_counter() - t0)
+    counts = bt.launch_counts()
+    check(counts["proj_simplex_rows"] >= len(reqs) * SERVE_ITERS * len(ep._dp.buckets),
+          f"serve_mesh: proj_simplex_rows launched {counts['proj_simplex_rows']} times")
+    ep_u = bt.Endpoint(prob, method="pgd", line_search="exact", chunk=100, device=DEV)
+    diffs = []
+    for B, res in zip(reqs, results):
+        _check_simplices("serve_mesh", prob, res.x)
+        direct = ep_u.solve(B, tol=0.0, max_iter=SERVE_ITERS, lipschitz=ep._lip)
+        diffs.append(_rel_diff(res.objective, direct.objective))
+    loop = [float(np.sum(r.chunk_times)) for r in results]
+    del ep_u
+
+    # eq mesh endpoints: (a) the preset traffic, a certified request, then a
+    # perturbed one on the float64 sensitivity fast path from the gathered
+    # warm x, against serve_eq's oracle; (b) traffic_like x 128, two requests
+    # on one stacked operator (counted by wrapping the two sharded prepares)
+    from bsls_tpu_torch.utils.config import load_config
+
+    cfg = load_config("traffic")
+    small = bt.synthetic.make_config(cfg.config, seed=cfg.seed)
+    ep_t = bt.Endpoint(small, method=cfg.method, line_search=cfg.line_search,
+                       chunk=cfg.chunk, mesh=mesh)
+    bt.reset_launch_counts()
+    t0 = time.perf_counter()
+    r1 = ep_t.solve(np.asarray(small.b), tol=cfg.tol, max_iter=cfg.max_iter, refine_tol=1e-6)
+    t1 = time.perf_counter()
+    r2 = ep_t.solve(ctx["serve_eq_traffic"]["b2"], tol=cfg.tol, max_iter=cfg.max_iter)
+    t2 = time.perf_counter()
+    for k, c in bt.launch_counts().items():
+        counts[k] += c
+    f_orc = ctx["serve_eq_traffic"]["oracle"]
+    traffic = {"request1_secs": t1 - t0, "request1_converged": r1.converged,
+               "request1_eq_violation": r1.eq_violation,
+               "request1_certificate": r1.refine_fw_gap, "request2_secs": t2 - t1,
+               "request2_stop_reason": r2.stop_reason, "request2_eq_violation": r2.eq_violation,
+               "request2_rel_to_oracle": abs(float(r2.objective) - f_orc) / max(abs(f_orc),
+                                                                                1e-30)}
+    big = ctx["eq_prob"]
+    ep_eq = bt.Endpoint(big, method="pgd", line_search="exact", chunk=100, mesh=mesh)
+    builds, real = [0], (SH.shard_problem, SH.shard_problem_rows)
+
+    def counted(fn):
+        def run(*a, **k):
+            builds[0] += 1
+            return fn(*a, **k)
+        return run
+
+    B1 = np.asarray(big.b)
+    B2 = (B1 * (1.0 + 0.01 * np.random.default_rng(71).standard_normal(B1.shape))
+          ).astype(np.float32)
+    eq_rows = []
+    SH.shard_problem, SH.shard_problem_rows = counted(real[0]), counted(real[1])
+    try:
+        for B in (B1, B2):
+            bt.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = ep_eq.solve(B, max_iter=SERVE_EQ_BUDGET, inner_iters=EQ_INNER, eq_tol=1e-6,
+                              sensitivity=False)
+            secs = time.perf_counter() - t0
+            c = bt.launch_counts()
+            for k in counts:
+                counts[k] += c[k]
+            _check_simplices("serve_mesh eq", big, res.x)
+            eq_rows.append({"secs": secs, "iterations": res.iterations,
+                            "converged": res.converged, "stop_reason": res.stop_reason,
+                            "eq_violation": res.eq_violation,
+                            "warm_entries_after": len(ep_eq._eq_warm),
+                            "proj_simplex_rows_launches": c["proj_simplex_rows"]})
+    finally:
+        SH.shard_problem, SH.shard_problem_rows = real
+    n_ops = len(ep_eq._eq_ops)
+    del ep_eq
+    emit("serve_mesh", instance=f"medium_sparse(seed=0) x {SCENARIOS}", mesh=dict(mesh.shape),
+         endpoint_build_secs=build_secs, lipschitz=ep._lip, requests=len(reqs),
+         iterations=SERVE_ITERS, request_wall_secs=walls, chunk_loop_secs=loop,
+         outside_chunk_loop_secs=[w - lp for w, lp in zip(walls, loop)],
+         max_rel_diff_to_unsharded_endpoint=max(diffs), rel_diff_by_request=diffs,
+         aggregate_iters_per_sec_by_wall=[SCENARIOS * SERVE_ITERS / w for w in walls],
+         eq_traffic=traffic, eq={"instance": f"traffic_like x {EQ_SCENARIOS}",
+                                 "stacked_builds": builds[0], "requests": eq_rows},
+         launches=counts, phase_secs=time.perf_counter() - t_phase)
+    check(max(diffs) <= MESH_WORLD1_RTOL, f"serve_mesh: requests {max(diffs):.2e} relative "
+          f"off the unsharded endpoint's (limit {MESH_WORLD1_RTOL})")
+    check(builds[0] == 1 and n_ops == 1,
+          f"serve_mesh: {builds[0]} stacked builds, {n_ops} op_cache entries")
+    # the warm state is kept from converged requests only, as in the reference
+    check(all(r["warm_entries_after"] == int(r["converged"]) for r in eq_rows),
+          f"serve_mesh: warm state after unconverged requests ({eq_rows})")
+    check(r1.converged and r1.refine_fw_gap is not None and r1.refine_fw_gap <= 1e-6,
+          f"serve_mesh: the traffic request converged {r1.converged}, certificate "
+          f"{r1.refine_fw_gap}")
+    check(r2.stop_reason == "sensitivity" and r2.eq_violation <= 1e-6
+          and traffic["request2_rel_to_oracle"] <= 1e-9,
+          f"serve_mesh: the warm traffic request {traffic}")
+    q_counts = phase_serve_queue(prob, base, mesh=mesh)
+    for k in counts:
+        counts[k] += q_counts[k]
+    return counts
+
+
 def phase_mesh(ctx, report):
-    """The three mesh phases; their launches and the kernels' errors at the
-    shard shapes go into ``report``."""
+    """The mesh phases (config 4, then the equality-constrained loop); their
+    launches and the kernels' errors at the shard shapes go into
+    ``report``."""
     t0 = time.perf_counter()
     ctx["large"] = bt.synthetic.large_sharded(seed=0)
     ctx["large_gen_secs"] = time.perf_counter() - t0
@@ -2262,6 +2644,12 @@ def phase_mesh(ctx, report):
     for name, nums in {**row_checks, **page_checks}.items():
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], nums["max_abs_err"])
         report[name]["at_shard_shapes"] = nums
+    del ctx["large"]
+    eq_launches, eq_err = phase_mesh_eq_world1(ctx)
+    paths += [eq_launches, phase_mesh_eq_ranks(ctx)]
+    row = report["proj_simplex_rows"]
+    row["max_abs_err"] = max(row["max_abs_err"], eq_err)
+    row["at_eq_rank_tile_max_abs_err"] = eq_err
     return paths
 
 
@@ -2381,6 +2769,8 @@ def main():
     # the mesh: config 4 at full width (world of one over NCCL, four ranks on
     # the card over gloo) and the dry run; kernels 1-4 at rank shard shapes
     new_paths.extend(phase_mesh(ctx, report))
+    # serving on a mesh: both endpoint kinds and the queue over one
+    new_paths.append(phase_serve_mesh(ctx, prob, base))
     for name, err in ctx["eq_row_errs"].items():
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
     phase_chunk0()

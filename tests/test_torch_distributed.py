@@ -167,9 +167,10 @@ def test_dryrun_multichip_four_cpu_ranks():
     report = out["cases"]
     assert set(out["launches"]) >= {"proj_simplex_rows", "pava_rows", "band_zmv"}
     assert not any(out["launches"].values())  # CPU tensors take the plain versions
-    assert set(report) >= {*FAMILIES, "pava", "3-chunk", "checkpoint-resume", "ragged",
+    assert set(report) == {*FAMILIES, "pava", "3-chunk", "checkpoint-resume", "ragged",
                            "row-sharded dense", "row-sharded ELL", "2-D grid",
-                           "sharded banded"}
+                           "sharded banded", "eq-constrained", "eq-constrained rows",
+                           "eq-constrained+refine"}
     assert max(report.values()) <= 1e-4
 
 

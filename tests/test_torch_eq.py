@@ -478,25 +478,42 @@ def test_al_refine_tol_on_a_small_grid_instance():
 # ------------------------------------------------------------ rejections
 
 
+def _grid_view():
+    """A rank's view of a 2-D (row 2) mesh, without process groups."""
+    from bsls_tpu_torch.parallel import mesh as TM
+
+    return TM.Mesh(shape={"row": 2, "block": 1, "scenario": 1},
+                   coords=dict.fromkeys(TM.AXES, 0), groups=dict.fromkeys(TM.AXES),
+                   device=torch.device("cpu"), device_mesh=None)
+
+
 REJECTED = {
     "space": (ValueError, dict(space="z")),
     "callback": (ValueError, dict(callback=lambda it, st: None)),
     "certify": (ValueError, dict(certify=10)),
     "lipschitz": (ValueError, dict(lipschitz=1.0)),
     "stop_rule": (ValueError, dict(stop_rule="gap")),
-    "mesh": (NotImplementedError, dict(mesh=object())),
+    # the loop runs on a mesh; on a 2-D grid it does not, as in the reference
+    "mesh": (ValueError, dict(mesh=_grid_view())),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REJECTED))
 def test_eq_solve_rejects(name):
     exc, kw = REJECTED[name]
-    match = name if exc is ValueError else "not ported"
-    with pytest.raises(exc, match=match):
+    with pytest.raises(exc, match=name):
         bt.solve(small(tsyn), device="cpu", max_iter=10, **kw)
-    if exc is NotImplementedError:
-        with pytest.raises(exc, match="not ported"):
+    if name == "mesh":
+        with pytest.raises(exc, match="2-D grid"):
             bt.solve_equality_constrained(small(tsyn), device="cpu", max_iter=10, **kw)
+        # on a mesh of one block the loop runs, as on one device
+        bt.init_distributed("gloo")
+        mesh = bt.make_mesh(block=1, device="cpu")
+        kw = dict(max_iter=40, chunk=10)
+        got = bt.solve(small(tsyn), mesh=mesh, **kw)
+        want = bt.solve(small(tsyn), device="cpu", **kw)
+        assert got.iterations == want.iterations == 40 and got.eq_violation is not None
+        np.testing.assert_allclose(got.objective, want.objective, rtol=1e-4)
 
 
 def test_eq_solve_needs_the_card_unless_asked_for_the_cpu():
@@ -504,5 +521,7 @@ def test_eq_solve_needs_the_card_unless_asked_for_the_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         bt.solve(small(tsyn), max_iter=10)
-    with pytest.raises(NotImplementedError, match="distribution"):
+    # shard_rows without a mesh is refused, as in the reference (the mesh
+    # loop itself: tests/test_torch_eq_mesh.py)
+    with pytest.raises(ValueError, match="requires a mesh"):
         bt.solve_equality_constrained(small(tsyn), device="cpu", shard_rows=True)

@@ -135,9 +135,10 @@ def test_default_device_without_a_card_raises():
 
 
 # options whose part was not ported: the mesh, which now runs the
-# unconstrained solve; only its equality-constrained branch still raises
+# unconstrained solve and the equality-constrained loop (by column and by
+# row); nothing raises "not ported" any more
 UNPORTED = {
-    "mesh": dict(mesh=object()),
+    "mesh": dict(block=1, device="cpu"),
 }
 
 
@@ -145,14 +146,18 @@ UNPORTED = {
 def test_unported_options_raise(name):
     import bsls_tpu_torch as bt
 
+    bt.init_distributed("gloo")
+    mesh = bt.make_mesh(**UNPORTED[name])
     eq = bt.synthetic.traffic_like(num_blocks=10, m=30, num_eq=3)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        bt.solve(eq, device="cpu", **UNPORTED[name])
+    kw = dict(max_iter=30, chunk=10)
+    want = bt.solve(eq, device="cpu", **kw)
+    for rows in (False, True):
+        got = bt.solve(eq, mesh=mesh, shard_rows=rows, **kw)
+        assert got.eq_violation is not None and got.iterations == want.iterations
+        np.testing.assert_allclose(got.objective, want.objective, rtol=1e-4)
     # the unconstrained solve on a mesh (a world of one) runs, as the
     # unsharded solve does
     prob = bt.synthetic.tiny_dense(num_blocks=4, dim=3, m=10)
-    bt.init_distributed("gloo")
-    mesh = bt.make_mesh(block=1, device="cpu")
     got = bt.solve(prob, mesh=mesh, max_iter=50, chunk=10, lipschitz=10.0)
     want = bt.solve(prob, device="cpu", max_iter=50, chunk=10, lipschitz=10.0)
     np.testing.assert_allclose(got.objective, want.objective, rtol=1e-6)

@@ -155,8 +155,14 @@ def test_endpoint_rejects_bad_shapes(shape):
 
 def test_endpoint_without_a_card_raises_and_mesh_is_not_ported():
     pt = tsyn.tiny_dense(seed=3, num_blocks=5, dim=4, m=30)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        TS.Endpoint(pt, mesh=object(), device="cpu")
+    # a mesh endpoint serves (a world of one; more: tests/test_torch_serving_mesh.py)
+    bt.init_distributed("gloo")
+    ep = TS.Endpoint(pt, method="pgd", mesh=bt.make_mesh(block=1, device="cpu"))
+    res = ep.solve(np.asarray(pt.b), tol=0.0, max_iter=20)
+    want = TS.Endpoint(pt, method="pgd", device="cpu").solve(np.asarray(pt.b), tol=0.0,
+                                                            max_iter=20, lipschitz=ep._lip)
+    assert res.x.shape == (pt.partition.n_flat,)
+    np.testing.assert_allclose(res.objective, want.objective, rtol=1e-6)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works here")
     with pytest.raises(RuntimeError, match="cuda"):

@@ -232,6 +232,223 @@ def _world_cli(spec):
     return {}
 
 
+# ---------------- the equality-constrained mesh (tests/test_torch_eq_mesh.py)
+
+# (name, shard_rows, scenarios, num_eq) of the two-rank AL loop held against
+# the reference: by column with one right-hand side; by row with two and
+# p = 1 < 2 rows of C (rank 1's bottom part is one padded zero row)
+EQ_MESH_CASES = (("col", False, 1, 4), ("rows", True, 2, 1))
+EQ_MESH_ITERS = dict(method="pgd", line_search="exact", tol=1e-9, eq_tol=1e-7, max_iter=600,
+                     inner_iters=150, chunk=50)
+
+
+def eq_mesh_instance(syn, scenarios: int, num_eq: int):
+    prob = syn.traffic_like(seed=0, num_blocks=12, m=60, num_eq=num_eq)
+    return prob if scenarios == 1 else syn.with_scenarios(prob, scenarios, seed=4)
+
+
+def _even(a, k, n, axis=0):
+    size = a.shape[axis] // n
+    return np.take(a, range(k * size, (k + 1) * size), axis=axis)
+
+
+def stacked_tile(flat: dict, rows: bool, k: int, n: int) -> dict:
+    """Rank ``k``'s tile (of ``n`` block shards, one scenario shard) of a
+    flattened stacked ``DeviceVStack`` problem whose arrays are global, as
+    the reference's ``shard_problem``/``shard_problem_rows`` leave them:
+    in the port's local shapes, with ``num_rows`` and ``A.split`` global."""
+    out = {}
+    for key, a in flat.items():
+        if not isinstance(a, np.ndarray) or key in ("A.bottom_scale", "row_perm"):
+            out[key] = a
+        elif key.startswith("A.top.mv_"):
+            out[key] = a[k:k + 1]
+        elif key.startswith("A.top."):  # rows/vals: (n_pf, k), or (nr, n_pf, ks) by row
+            out[key] = a[k] if rows else _even(a, k, n)
+        elif key == "A.bottom.data":
+            out[key] = _even(a, k, n, axis=0 if rows else 1)
+        elif key == "b":
+            out[key] = _even(np.atleast_2d(a), k, n, axis=1) if rows else a
+        else:  # perm and the buckets follow the column shard
+            out[key] = a if rows else _even(a, k, n)
+    return out
+
+
+def _world_eq_mesh(spec):
+    """Rank k of the two-rank eq world: the AL loop on a block-2 mesh,
+    column- and row-sharded, with the reference's tile and Lipschitz pair
+    carried into the port's op_cache (float64); then checkpoint and resume at
+    outer granularity.  Every rank checks that all ranks returned the same
+    bits."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import bsls_tpu_torch as bt
+    import bsls_tpu_torch.models.synthetic as syn
+    from bsls_tpu_torch.convert import device_problem_from_numpy
+    from bsls_tpu_torch.parallel import sharding as TS
+    from bsls_tpu_torch.solvers import eq_constrained as TEQ
+
+    rank = dist.get_rank()
+    mesh = bt.make_mesh(block=2, device="cpu")
+    f64 = torch.float64
+    out = {}
+
+    def same_on_every_rank(*arrays):
+        mine = [np.asarray(a) for a in arrays]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        return all(len(o) == len(mine) and all(np.array_equal(a, b) for a, b in zip(o, mine))
+                   for o in every)
+
+    class Outers:
+        def __init__(self):
+            self.outer = []
+
+        def log(self, kind, **fields):
+            if kind == "outer":
+                self.outer.append(fields)
+
+    for name, rows, scenarios, num_eq in EQ_MESH_CASES:
+        prob = eq_mesh_instance(syn, scenarios, num_eq)
+        ref = spec["ref"][name]
+        tile = dict(np.load(os.path.join(spec["dir"], f"tile_{name}_{rank}.npz"),
+                            allow_pickle=True))
+        tile = {k: (v.item() if v.dtype == object else v) for k, v in tile.items()}
+        group = mesh.groups["block"]
+        dp = device_problem_from_numpy(tile, device="cpu", dtype=f64,
+                                       row_shards=2 if rows else 1,
+                                       col_group=None if rows else group,
+                                       row_group=group if rows else None)
+        part = prob.partition if rows else TS._block_partition(prob, 2).partition
+        key = TEQ.op_cache_key(prob, f64, "pgd", "exact", mesh.device, mesh, rows)
+        cache = {key: ((dp, part, mesh), ref["rho_base"], ref["L_base"], ref["LC"],
+                       prob.A, prob.C)}
+        rec = Outers()
+        res = bt.solve_equality_constrained(prob, mesh=mesh, shard_rows=rows, dtype=f64,
+                                            op_cache=cache, metrics=rec, **EQ_MESH_ITERS)
+        out.update({f"{name}.f": res.objective, f"{name}.x": res.x, f"{name}.lam": res.eq_lam,
+                    f"{name}.rho": res.eq_rho, f"{name}.viol": res.eq_violation,
+                    f"{name}.iterations": res.iterations,
+                    f"{name}.stop": np.asarray(res.stop_reason),
+                    f"{name}.outer_rho": [o["rho"] for o in rec.outer],
+                    f"{name}.outer_viol": [o["viol"] for o in rec.outer],
+                    f"{name}.outer_f": [np.max(o["f"]) for o in rec.outer],
+                    f"{name}.same": same_on_every_rank(res.x, res.objective, res.eq_lam,
+                                                       res.eq_rho, res.iterations)})
+
+    # checkpoint at outer granularity (per-rank files, two kept) and resume;
+    # one op_cache, so that the resumed outers run on the operator (and its
+    # equilibration, made at the first outer's rho) of the uninterrupted run
+    prob = eq_mesh_instance(syn, 2, 4)
+    ck = os.path.join(spec["dir"], "eq.npz")
+    kw = dict(EQ_MESH_ITERS, dtype=f64, shard_rows=True, max_iter=2000, outer_iters=4,
+              op_cache={})
+    full = bt.solve_equality_constrained(prob, mesh=mesh, **kw)
+    bt.solve_equality_constrained(prob, mesh=mesh, checkpoint_path=ck, checkpoint_every=1,
+                                  checkpoint_keep=2, **dict(kw, outer_iters=2))
+    dist.barrier()
+    files = sorted(f for f in os.listdir(spec["dir"]) if f.startswith("eq."))
+    resumed = bt.solve_equality_constrained(prob, mesh=mesh, checkpoint_path=ck, resume=True,
+                                            **kw)
+    out.update({"ck.files": np.asarray(files), "full.x": full.x, "full.f": full.objective,
+                "full.lam": full.eq_lam, "resumed.x": resumed.x,
+                "resumed.f": resumed.objective, "resumed.lam": resumed.eq_lam,
+                "full.iterations": full.iterations, "resumed.iterations": resumed.iterations,
+                "resumed.same": same_on_every_rank(resumed.x, resumed.eq_lam)})
+    return out
+
+
+# ---------------- serving on a mesh (tests/test_torch_serving_mesh.py)
+
+def serve_mesh_instance(syn):
+    return syn.tiny_dense(seed=0, num_blocks=32, dim=4, m=128)
+
+
+def queue_requests(prob, count: int = 6):
+    """Single right-hand sides, in float32 as ``BatchQueue.submit`` takes them."""
+    rng = np.random.default_rng(0)
+    return [(np.asarray(prob.b) + 0.01 * rng.standard_normal(prob.A.shape[0])).astype(np.float32)
+            for _ in range(count)]
+
+
+QUEUE_ITERS = dict(tol=0.0, max_iter=100)
+
+
+def _world_serve_mesh(spec):
+    """Rank k of the two-rank serving world: a mesh endpoint behind a
+    BatchQueue (rank 0 submits from three client threads; rank 1's queue
+    follows), then the same requests as one batch on every rank, and an
+    eq endpoint's two requests."""
+    import threading
+
+    import torch
+
+    import bsls_tpu_torch as bt
+    import bsls_tpu_torch.models.synthetic as syn
+
+    mesh = bt.make_mesh(block=2, device="cpu")
+    prob = serve_mesh_instance(syn)
+    ep = bt.Endpoint(prob, method="pgd", chunk=50, mesh=mesh, dtype=torch.float64)
+    q = bt.BatchQueue(ep, max_batch=4, max_wait_ms=50, **QUEUE_ITERS)
+    bs = queue_requests(prob)
+    out = {}
+    if mesh.rank == 0:
+        got = [None] * len(bs)
+
+        def client(k):
+            for i in range(k, len(bs), 3):
+                got[i] = q.submit(bs[i]).result(timeout=120)
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        q.close(timeout=60)
+        out.update({"queue.f": [r.objective for r in got], "queue.x": [r.x for r in got],
+                    "queue.batches": q.batches_run, "lipschitz": ep._lip})
+    else:
+        try:
+            q.submit(bs[0])
+            refused = ""
+        except RuntimeError as e:
+            refused = str(e)
+        q.close(timeout=120)
+        assert not q._worker.is_alive() and q.requests_served == len(bs), q.requests_served
+        out["refused"] = refused
+    batch = ep.solve(np.stack(bs), **QUEUE_ITERS)
+    out.update({"batch.f": batch.objective, "batch.x": batch.x})
+    # the eq endpoint: one stacked operator for the stream; the second
+    # request warm-starts from the first, the third takes the sensitivity
+    # fast path (rank 0 walks, every rank returns its answer)
+    eq = eq_serving_instance(syn)
+    ep_eq = bt.Endpoint(eq, method="apgd", chunk=100, mesh=mesh)
+    for k, (b, sens) in enumerate(eq_requests(eq)):
+        r = ep_eq.solve(b, tol=1e-7, max_iter=10_000, sensitivity=sens)
+        out.update({f"eq{k}.f": r.objective, f"eq{k}.viol": r.eq_violation,
+                    f"eq{k}.stop": r.stop_reason, f"eq{k}.x": r.x,
+                    f"eq{k}.cert": np.nan if r.refine_fw_gap is None else r.refine_fw_gap})
+    out["eq.ops"] = len(ep_eq._eq_ops)
+    return out
+
+
+def eq_serving_instance(syn):
+    return syn.traffic_like(seed=3, num_blocks=48, m=200, num_eq=8, noise=1e-3)
+
+
+def eq_requests(eq):
+    """(b, sensitivity) of the eq endpoint's three requests: the instance's
+    b; a 0.1% perturbation with the fast path off (the AL loop, warm); a
+    2% perturbation (the fast path)."""
+    b0 = np.asarray(eq.b)
+    b1 = b0 * (1.0 + 1e-3 * np.random.default_rng(5).standard_normal(b0.shape))
+    b2 = b0 * (1.0 + 2e-2 * np.random.default_rng(2).standard_normal(b0.shape))
+    return ((b0, True), (b1, False), (b2, True))
+
+
 def world_child():
     """One rank of a test world: ``python -c _CHILD rank n init spec out``."""
     import json
@@ -249,6 +466,8 @@ def world_child():
     results = globals()[f"_world_{spec['case']}"](spec)
     if rank == 0 and results:
         np.savez(out, **{k: np.asarray(v) for k, v in results.items()})
+    elif results and spec.get("every_rank"):
+        np.savez(f"{out[:-4]}.rank{rank}.npz", **{k: np.asarray(v) for k, v in results.items()})
     dist.barrier()
     dist.destroy_process_group()
 
@@ -302,6 +521,10 @@ class World:
         for r, (p, out) in enumerate(zip(self.procs, outs)):
             assert p.returncode == 0, f"rank {r} failed:\n{out[-3000:]}"
         data = dict(np.load(self.out)) if self.out.exists() else {}
+        for r in range(1, len(self.procs)):  # the other ranks' arrays (spec every_rank)
+            other = self.out.with_name(f"{self.out.stem}.rank{r}.npz")
+            if other.exists():
+                data.update({f"rank{r}.{k}": v for k, v in np.load(other).items()})
         return data, outs
 
     def stop(self):
