@@ -1,5 +1,5 @@
 // The exact sort-based simplex projection of one row, as a device function
-// shared by proj_simplex_rows.cu (generic width) and pgd_chunk.cu.
+// of the fused chunk (pgd_chunk.cu).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,69 +1,272 @@
-// proj_simplex_rows: batched Euclidean projection onto radius-scaled simplices.
+// proj_simplex_rows: batched Euclidean projection onto radius-scaled simplices,
+// every bucket of one projection in one launch.
 //
-//   out[r, :n] = argmin_x ||x - v[r, :n]||  s.t.  x >= 0, sum x = radius[r % Bk]
-//   out[r, n:] = 0,   n = widths[r % Bk]   (n = 0: the whole row is 0)
+//   out[r, :n] = argmin_x ||x - v[r, :n]||  s.t.  x >= 0, sum x = radius[b]
+//   out[r, n:] = 0,   n = widths[b],  r = s * Bk + b   (n = 0: the row is 0)
 //
-// Replaces the TPU kernel proj_simplex_pallas_tw
-// (bsls_tpu/ops/pallas/projection_kernel.py:132, core _proj_tile_kernel_t).
+// for each bucket (S, Bk, w) of the projection.  Replaces the TPU kernels
+// proj_simplex_pallas_tw and proj_simplex_pallas
+// (bsls_tpu/ops/pallas/projection_kernel.py:132 and :187, the same function
+// in two layouts; cores _proj_tile_kernel_t and _proj_tile_kernel).
 //
-// Bound on this card: memory.  Each row is read once and written once,
-// 2 * 4 * R * w bytes plus the 8 * Bk bytes of parameters, against some
-// w^2 / 2 compare-exchanges per row; at w <= 32 the arithmetic is far below
-// the fp32 rate that the memory rate would have to feed.
+// Bound on this card: bytes.  Each row is read once and written once,
+// 2 * 4 * w bytes a row plus 8 * Bk bytes of parameters.  The thread forms'
+// arithmetic (a sorting network, a scan) stays under the fp32 rate that the
+// memory rate feeds; the group forms' (w^2 compare-and-adds a row) binds from
+// w of about 32 on.
 //
-// Design.  One thread per row, the row in registers, w a template parameter
-// for the bucket widths that occur (1, 2, 4, 8, 16, 32); 16-byte loads and
-// stores where w % 4 == 0.  The threshold is found EXACTLY, by the sort-based
-// algorithm of arXiv:1101.6081 (sort descending, pivot
-// rho = max{k : u_k * k > cumsum_k - radius}, tau = (cumsum_rho - radius)/rho)
-// on an odd-even transposition network that the compiler unrolls into
-// register-to-register min/max.  The TPU kernel bisected (40 halvings of a
-// bracket on s(t) = sum max(v - t, 0)) only because sort networks would not
-// lower there; on registers the sort costs w^2/2 min/max pairs against
-// 40 * w for the bisection, so it is cheaper for every templated width, and it
-// mirrors the plain version (ops/projection.py::proj_simplex_padded) step by
-// step.  One Newton correction of tau on the found support takes the
-// cancellation error of cumsum - radius out of the row sum, as the TPU kernel
-// does.  Rows of any other width up to 128 go through a generic kernel with
-// the row in local memory and an insertion sort (proj_device.cuh, shared with
-// the fused-chunk kernel).
-#include "proj_device.cuh"
+// Threshold.  Both forms find exactly the threshold tau of arXiv:1101.6081,
+// then apply one Newton correction of tau on the support it selects, which
+// takes the cancellation error of the sums out of the row sum, as the TPU
+// kernel does after its bisection.
+// * Thread forms (w <= 16, one thread a row): the row is sorted descending by
+//   Batcher's odd-even merge network, pruned to w slots; then
+//   rho = max{k : u_k * k > cumsum_k - r}, tau = (cumsum_rho - r) / rho.
+// * Group forms (w > 16, a row on G lanes): sort-free.  With u the row's
+//   first n values and r its radius,
+//       tau = max_{i < n} (sum_{j < n, u_j >= u_i} u_j - r) / #{j < n : u_j >= u_i},
+//   the same threshold, ties included: each i names the top set that ends
+//   with u_i's whole tie group, every such set gives a lower bound on tau,
+//   and the support of the projection is one of them.  The pairwise sums
+//   take the row's values lane by lane through __shfl_sync broadcasts; tau is
+//   a max-reduction over the group of (numerator, count) pairs compared by
+//   cross-multiplication in a total order, so every lane picks the same pair.
+//
+// What held the first form of this kernel (PR 1) back, and what this one does
+// about each:
+//
+// * Widths other than 1, 2, 4, 8, 16 and 32 ran a generic form: one thread a
+//   row, the row and its sorted copy in local memory, an insertion sort
+//   (13% of the bound at w = 12).  Here every width 1..128 has a compile-time
+//   form (BSLS_PROJ_FORMS below, ops/rowkernels.py::PROJ_PLAN), and nothing is
+//   indexed at run time, so nothing leaves the registers (chip_smoke.py
+//   --ptxas checks it).  Up to w = 16 a thread holds its row, read with 16- or
+//   8-byte loads where the bucket is aligned; past w = 8 it reads the row a
+//   second time (an L1 hit) after the threshold rather than hold the row
+//   beside its sorted copy.  Wider rows take a group of G = 8, 16 or 32 lanes
+//   with K = 3 or 4 values a lane, slot l + k * G on lane l, so that
+//   neighbouring lanes read neighbouring addresses whatever the row stride;
+//   slots past the width are masked at run time.
+// * Every thread found its block by a 64-bit remainder, row % Bk.  Here a
+//   block covers consecutive rows of one bucket; the block index of its first
+//   row comes from a multiply by the bucket's magic number, and a thread's
+//   from one subtraction (a 32-bit remainder only in a bucket with fewer rows
+//   a scenario than a block).
+// * Each bucket was one launch.  Here one launch covers every bucket (up to
+//   kMaxBuckets; the wrapper launches again beyond them).  The descriptors of
+//   the buckets travel by value as a __grid_constant__ kernel parameter, so
+//   nothing is copied to the card for a call; a block finds its bucket from
+//   the descriptors' first blocks and switches on that bucket's form.  The
+//   kernel is instantiated for 1, 2, 4 and 8 descriptors, since the size of
+//   the parameter block is paid at every launch.
+//
+// The price of one kernel for every form: its register count is its largest
+// form's, so the narrowest rows, which have the fewest bytes in flight a
+// thread, run at lower occupancy than a kernel of their own would give them
+// (PERF.md, PR 10).
+#include <cstdint>
+
 #include "rows_common.cuh"
 
 namespace bsls {
 
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-proj_rows_fixed(const float* __restrict__ v, const int* __restrict__ widths,
-                const float* __restrict__ radius, float* __restrict__ out,
-                long long R, int Bk) {
-  const long long row = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (row >= R) return;
-  const int b = static_cast<int>(row % Bk);
-  const int n = min(widths[b], W);
-  const float rad = radius[b];
+constexpr int kMaxBuckets = 8;
+// Rows a bucket may hold (S * Bk): the row index of a block's last row fits
+// 32 bits.
+constexpr long long kMaxRows = (1LL << 32) - (1LL << 12);
+constexpr unsigned int kFull = 0xffffffffu;
+// Thread forms up to this width keep the row's first read in registers
+// beside its sorted copy; wider ones read the row again after the threshold.
+constexpr int kKeepRow = 8;
 
-  float x[W], u[W];
-  load_row<W>(v, row, x);
-#pragma unroll
-  for (int i = 0; i < W; ++i) u[i] = (i < n) ? x[i] : -kBig;
+// width range -> (lanes a row G, values a lane K): X(lo, hi, G, K).
+// ops/rowkernels.py::PROJ_PLAN states the same table.
+#define BSLS_PROJ_FORMS(X)                                                      \
+  X(1, 1, 1, 1) X(2, 2, 1, 2) X(3, 3, 1, 3) X(4, 4, 1, 4) X(5, 5, 1, 5)       \
+  X(6, 6, 1, 6) X(7, 7, 1, 7) X(8, 8, 1, 8) X(9, 9, 1, 9) X(10, 10, 1, 10)    \
+  X(11, 11, 1, 11) X(12, 12, 1, 12) X(13, 13, 1, 13) X(14, 14, 1, 14)         \
+  X(15, 15, 1, 15) X(16, 16, 1, 16) X(17, 24, 8, 3) X(25, 32, 8, 4)           \
+  X(33, 48, 16, 3) X(49, 64, 16, 4) X(65, 96, 32, 3) X(97, 128, 32, 4)
 
-  // odd-even transposition sort, descending; all indices are compile-time
-  // constants after unrolling, so u stays in registers
+struct ProjBucket {
+  const float* v;
+  float* out;
+  const int* widths;
+  const float* radius;
+  unsigned int rows;       // S * Bk, the rows of the (S, Bk, w) bucket
+  unsigned int Bk;
+  unsigned int magic;      // r / Bk = (t + ((r - t) >> shift1)) >> shift2,
+  int shift1, shift2;      //   t = umulhi(r, magic) (round-up method)
+  int w;
+  int form;                // G * 256 + K of the width's entry in BSLS_PROJ_FORMS
+  int vec;                 // v and out 16-byte aligned
+  unsigned int first_block;
+};
+
+// NB descriptors: the kernel is instantiated for 1, 2, 4 and kMaxBuckets,
+// and a projection takes the smallest that holds its buckets, since the size
+// of the parameter block is paid at every launch (PERF.md, PR 10).
+template <int NB>
+struct ProjLaunch {
+  ProjBucket b[NB];
+  int nb;
+};
+
+// Row-contiguous loads of a thread form (K == w): 16- or 8-byte vectors where
+// the bucket's pointers are aligned, through the read-only path (__ldg: the
+// input never aliases an output of the launch).
+template <int K>
+__device__ __forceinline__ void load_thread_row(const float* __restrict__ src, bool vec,
+                                                float (&x)[K]) {
+  if constexpr (K % 4 == 0) {
+    if (vec) {
 #pragma unroll
-  for (int p = 0; p < W; ++p) {
+      for (int q = 0; q < K / 4; ++q) {
+        const float4 t = __ldg(reinterpret_cast<const float4*>(src) + q);
+        x[4 * q] = t.x;
+        x[4 * q + 1] = t.y;
+        x[4 * q + 2] = t.z;
+        x[4 * q + 3] = t.w;
+      }
+      return;
+    }
+  } else if constexpr (K % 2 == 0) {
+    if (vec) {
 #pragma unroll
-    for (int i = (p & 1); i + 1 < W; i += 2) {
-      const float a = u[i], c = u[i + 1];
-      u[i] = fmaxf(a, c);
-      u[i + 1] = fminf(a, c);
+      for (int q = 0; q < K / 2; ++q) {
+        const float2 t = __ldg(reinterpret_cast<const float2*>(src) + q);
+        x[2 * q] = t.x;
+        x[2 * q + 1] = t.y;
+      }
+      return;
     }
   }
+#pragma unroll
+  for (int k = 0; k < K; ++k) x[k] = __ldg(src + k);
+}
 
+template <int K>
+__device__ __forceinline__ void store_thread_row(float* __restrict__ dst, bool vec,
+                                                 const float (&x)[K]) {
+  if constexpr (K % 4 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int q = 0; q < K / 4; ++q)
+        reinterpret_cast<float4*>(dst)[q] =
+            make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+      return;
+    }
+  } else if constexpr (K % 2 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int q = 0; q < K / 2; ++q)
+        reinterpret_cast<float2*>(dst)[q] = make_float2(x[2 * q], x[2 * q + 1]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) dst[k] = x[k];
+}
+
+// Sort u descending with Batcher's odd-even merge network for the next power
+// of two, pruned to the first K slots: every comparator sends the larger
+// value to the lower slot, so slots past K (as if -inf) never move and their
+// comparators are dropped.  Every index is a compile-time constant.
+template <int K>
+__device__ __forceinline__ void sort_desc(float (&u)[K]) {
+  constexpr int P = K <= 1 ? 1 : K <= 2 ? 2 : K <= 4 ? 4 : K <= 8 ? 8 : 16;
+#pragma unroll
+  for (int p = 1; p < P; p *= 2) {
+#pragma unroll
+    for (int k = p; k >= 1; k /= 2) {
+      // comparators (lo, lo + k) with lo = j + i, j = k % p + 2k * m, i < k,
+      // both in one run of 2p; a constant trip count, so that it unrolls
+#pragma unroll
+      for (int lo = 0; lo < P; ++lo) {
+        const int hi = lo + k, r = k % p;
+        if (lo >= r && (lo - r) % (2 * k) < k && hi < K && lo / (2 * p) == hi / (2 * p)) {
+          const float a = u[lo], c = u[hi];
+          u[lo] = fmaxf(a, c);
+          u[hi] = fminf(a, c);
+        }
+      }
+    }
+  }
+}
+
+// The row of a thread form read a second time, after its threshold: an L1 hit
+// (the first read brought the lines in).  The asm is volatile so that the
+// compiler cannot keep the first read's values live through the sort
+// instead, which would hold two K-arrays at once and cut the occupancy of
+// every form of the kernel.
+template <int K>
+__device__ __forceinline__ void reload_thread_row(const float* src, bool vec, float (&x)[K]) {
+  if constexpr (K % 4 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int q = 0; q < K / 4; ++q)
+        asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+                     : "=f"(x[4 * q]), "=f"(x[4 * q + 1]), "=f"(x[4 * q + 2]), "=f"(x[4 * q + 3])
+                     : "l"(src + 4 * q));
+      return;
+    }
+  } else if constexpr (K % 2 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int q = 0; q < K / 2; ++q)
+        asm volatile("ld.global.nc.v2.f32 {%0, %1}, [%2];"
+                     : "=f"(x[2 * q]), "=f"(x[2 * q + 1]) : "l"(src + 2 * q));
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(x[k]) : "l"(src + k));
+}
+
+// A bucket's rows are its scenarios' Bk rows end to end.  The block index of
+// a block's first row r0: r0 - Bk * (r0 / Bk), the quotient by the bucket's
+// magic number (no division on the card).
+__device__ __forceinline__ unsigned int first_block_index(const ProjBucket& bk,
+                                                          unsigned int r0) {
+  const unsigned int t = __umulhi(r0, bk.magic);
+  return r0 - bk.Bk * ((t + ((r0 - t) >> bk.shift1)) >> bk.shift2);
+}
+
+// Block index of row `off` of a block whose first row has block index b0: one
+// subtraction, or a 32-bit remainder where the bucket has fewer rows a
+// scenario than a block.
+__device__ __forceinline__ unsigned int block_of(unsigned int b0, unsigned int off,
+                                                 unsigned int Bk, unsigned int span) {
+  const unsigned int b = b0 + off;
+  return b < Bk ? b : (Bk >= span ? b - Bk : b % Bk);
+}
+
+// Thread form: one row a thread, K = w values in its registers.  The row's
+// load is issued first (it needs the row index only); its block's width and
+// radius are found while it is in flight.  The row is sorted in a masked
+// copy u; past kKeepRow the row itself is read again after the threshold
+// instead of kept, so that only one K-array is live at a time.
+template <int K>
+__device__ __forceinline__ void project_rows_thread(const ProjBucket& bk, unsigned int lb) {
+  const unsigned int r0 = lb * kThreads, row = r0 + threadIdx.x;
+  if (row >= bk.rows) return;
+  const long long base = static_cast<long long>(row) * K;
+  const bool vec = bk.vec != 0;
+  float x[K];
+  load_thread_row<K>(bk.v + base, vec, x);
+  const unsigned int b = block_of(first_block_index(bk, r0), threadIdx.x, bk.Bk, kThreads);
+  const int n = min(bk.widths[b], K);
+  const float rad = bk.radius[b];
+
+  float u[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) u[k] = (k < n) ? x[k] : -kBig;
+  sort_desc<K>(u);
   float css = 0.0f, css_rho = u[0];
   int rho = 0;
 #pragma unroll
-  for (int k = 0; k < W; ++k) {
+  for (int k = 0; k < K; ++k) {
     if (k < n) {
       css += u[k];
       if (u[k] * static_cast<float>(k + 1) > css - rad) {
@@ -73,65 +276,207 @@ proj_rows_fixed(const float* __restrict__ v, const int* __restrict__ widths,
     }
   }
   float tau = (css_rho - rad) / static_cast<float>(rho + 1);
-
-  // Newton correction on the support that tau selects
+  if constexpr (K > kKeepRow) reload_thread_row<K>(bk.v + base, vec, x);
   float ssum = 0.0f, nsup = 0.0f;
 #pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const float o = (i < n) ? fmaxf(x[i] - tau, 0.0f) : 0.0f;
+  for (int k = 0; k < K; ++k) {
+    const float o = (k < n) ? fmaxf(x[k] - tau, 0.0f) : 0.0f;
     ssum += o;
     nsup += (o > 0.0f) ? 1.0f : 0.0f;
   }
   tau += (ssum - rad) / fmaxf(nsup, 1.0f);
-
 #pragma unroll
-  for (int i = 0; i < W; ++i) x[i] = (i < n) ? fmaxf(x[i] - tau, 0.0f) : 0.0f;
-  store_row<W>(out, row, x);
+  for (int k = 0; k < K; ++k) x[k] = (k < n) ? fmaxf(x[k] - tau, 0.0f) : 0.0f;
+  store_thread_row<K>(bk.out + base, vec, x);
 }
 
-// Any width up to kMaxWidth: the row and its sorted copy live in local memory.
+// (a, c) before (ba, bc) in the order the threshold maximises: the larger
+// a / c, then the larger c, then the larger a; c == 0 is no candidate.
+__device__ __forceinline__ bool better(float a, float c, float ba, float bc) {
+  if (c == 0.0f) return false;
+  if (bc == 0.0f) return true;
+  const float l = a * bc, r = ba * c;
+  return l > r || (l == r && (c > bc || (c == bc && a > ba)));
+}
+
+// Group form: one row on G lanes, K values a lane.  Every lane of the block
+// runs every shuffle: rows past Bk are masked, not skipped.
+template <int G, int K>
+__device__ __forceinline__ void project_rows_group(const ProjBucket& bk, unsigned int lb) {
+  constexpr unsigned int kSpan = kThreads / G;  // rows a block
+  const unsigned int r0 = lb * kSpan;
+  const unsigned int off = threadIdx.x / G;
+  const int lane = static_cast<int>(threadIdx.x) % G;
+  const bool live = r0 + off < bk.rows;
+  const int w = bk.w;
+  const long long base = static_cast<long long>(r0 + off) * w;
+  float x[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = lane + k * G;
+    x[k] = (live && j < w) ? __ldg(bk.v + base + j) : 0.0f;
+  }
+  // the row's block, while its loads are in flight
+  const unsigned int b = live ? block_of(first_block_index(bk, r0), off, bk.Bk, kSpan) : 0;
+  const int n = live ? min(bk.widths[b], w) : 0;
+  const float rad = live ? bk.radius[b] : 0.0f;
+  // u: the valid values, -kBig elsewhere (never >= a valid value)
+  float u[K], sum[K], cnt[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    u[k] = (lane + k * G < n) ? x[k] : -kBig;
+    sum[k] = 0.0f;
+    cnt[k] = 0.0f;
+  }
+#pragma unroll 8
+  for (int src = 0; src < G; ++src) {
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) {
+      const float val = __shfl_sync(kFull, u[kk], src, G);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (val >= u[k]) {
+          sum[k] += val;
+          cnt[k] += 1.0f;
+        }
+      }
+    }
+  }
+
+  float ba = 0.0f, bc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float a = sum[k] - rad;
+    const float c = (lane + k * G < n) ? cnt[k] : 0.0f;
+    if (better(a, c, ba, bc)) {
+      ba = a;
+      bc = c;
+    }
+  }
+#pragma unroll
+  for (int m = G / 2; m >= 1; m /= 2) {
+    const float oa = __shfl_xor_sync(kFull, ba, m, G);
+    const float oc = __shfl_xor_sync(kFull, bc, m, G);
+    if (better(oa, oc, ba, bc)) {
+      ba = oa;
+      bc = oc;
+    }
+  }
+  float tau = (bc > 0.0f) ? ba / bc : 0.0f;
+
+  // Newton correction on the support that tau selects; the butterfly sums
+  // are the same bits on every lane (each step adds a pair in both orders)
+  float ssum = 0.0f, nsup = 0.0f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float o = (lane + k * G < n) ? fmaxf(x[k] - tau, 0.0f) : 0.0f;
+    ssum += o;
+    nsup += (o > 0.0f) ? 1.0f : 0.0f;
+  }
+#pragma unroll
+  for (int m = G / 2; m >= 1; m /= 2) {
+    ssum += __shfl_xor_sync(kFull, ssum, m, G);
+    nsup += __shfl_xor_sync(kFull, nsup, m, G);
+  }
+  tau += (ssum - rad) / fmaxf(nsup, 1.0f);
+
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = lane + k * G;
+    if (live && j < w) bk.out[base + j] = (j < n) ? fmaxf(x[k] - tau, 0.0f) : 0.0f;
+  }
+}
+
+template <int G, int K>
+__device__ __forceinline__ void project_rows(const ProjBucket& bk, unsigned int lb) {
+  if constexpr (G == 1) {
+    project_rows_thread<K>(bk, lb);
+  } else {
+    project_rows_group<G, K>(bk, lb);
+  }
+}
+
+template <int NB>
 __global__ void __launch_bounds__(kThreads)
-proj_rows_generic(const float* __restrict__ v, const int* __restrict__ widths,
-                  const float* __restrict__ radius, float* __restrict__ out,
-                  long long R, int w, int Bk) {
-  const long long row = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (row >= R) return;
-  const int b = static_cast<int>(row % Bk);
-  const int n = min(widths[b], w);
-  const float rad = radius[b];
-  float u[kMaxWidth];
-  proj_simplex_row(v + row * w, n, w, rad, u, out + row * w);
+proj_buckets_kernel(const __grid_constant__ ProjLaunch<NB> L) {
+  // the block's bucket: the last whose first block it has passed (with one
+  // bucket a constant, and every field a direct operand)
+  int i = 0;
+#pragma unroll
+  for (int j = 1; j < NB; ++j) i += (j < L.nb && blockIdx.x >= L.b[j].first_block);
+  const ProjBucket& bk = L.b[i];
+  const unsigned int lb = blockIdx.x - bk.first_block;
+  switch (bk.form) {
+#define BSLS_FORM_CASE(lo, hi, G, K) \
+  case (G) * 256 + (K): project_rows<G, K>(bk, lb); break;
+    BSLS_PROJ_FORMS(BSLS_FORM_CASE)
+#undef BSLS_FORM_CASE
+    default: break;
+  }
+}
+
+// The form of width w (G * 256 + K, -1 for none) and the rows a block of it
+// covers.
+inline int proj_form(int w, int& rows_per_block) {
+#define BSLS_FORM_CODE(lo, hi, G, K) \
+  if (w >= (lo) && w <= (hi)) {      \
+    rows_per_block = kThreads / (G); \
+    return (G) * 256 + (K);          \
+  }
+  BSLS_PROJ_FORMS(BSLS_FORM_CODE)
+#undef BSLS_FORM_CODE
+  return -1;
+}
+
+template <int NB>
+int launch_buckets(const void* const* v, void* const* out, const void* const* widths,
+                   const void* const* radius, const long long* S, const int* Bk,
+                   const int* w, int nb, cudaStream_t stream) {
+  ProjLaunch<NB> L{};
+  L.nb = nb;
+  long long blocks = 0;
+  for (int i = 0; i < nb; ++i) {
+    int span = 0;
+    const int form = (w[i] >= 1 && w[i] <= kMaxWidth) ? proj_form(w[i], span) : -1;
+    if (form < 0 || Bk[i] < 1 || S[i] < 1 || S[i] > kMaxRows / Bk[i]) return -1;
+    const long long rows = S[i] * Bk[i];
+    const std::uintptr_t addr = reinterpret_cast<std::uintptr_t>(v[i]) |
+                                reinterpret_cast<std::uintptr_t>(out[i]);
+    // magic number of Bk: l = ceil(log2 Bk), m = 2^32 (2^l - Bk) / Bk + 1
+    int l = 0;
+    while ((1LL << l) < Bk[i]) ++l;
+    const unsigned int magic = static_cast<unsigned int>(
+        (((1ULL << 32) * ((1ULL << l) - static_cast<unsigned long long>(Bk[i]))) /
+         static_cast<unsigned long long>(Bk[i])) + 1);
+    L.b[i] = ProjBucket{static_cast<const float*>(v[i]), static_cast<float*>(out[i]),
+                        static_cast<const int*>(widths[i]),
+                        static_cast<const float*>(radius[i]), static_cast<unsigned int>(rows),
+                        static_cast<unsigned int>(Bk[i]), magic, l < 1 ? l : 1,
+                        l > 1 ? l - 1 : 0, w[i], form, addr % 16 == 0 ? 1 : 0,
+                        static_cast<unsigned int>(blocks)};
+    blocks += (rows + span - 1) / span;
+    if (blocks >= (1LL << 31)) return -1;  // one 1-D grid
+  }
+  proj_buckets_kernel<NB><<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(L);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace bsls
 
-// v, out: (R, w) fp32 row-major; widths: (Bk,) int32; radius: (Bk,) fp32;
-// R % Bk == 0; 1 <= w <= 128.  Launches on `stream`, does not synchronise.
-// Returns the cudaError_t of the launch (0 = success); -1 for a bad width.
-extern "C" int bsls_proj_simplex_rows(const void* v, const void* widths,
-                                      const void* radius, void* out,
-                                      long long R, int w, int Bk, void* stream) {
+// Bucket i: v[i], out[i] (S[i] * Bk[i], w[i]) fp32 row-major; widths[i]
+// (Bk[i],) int32; radius[i] (Bk[i],) fp32; S[i], Bk[i] >= 1,
+// S[i] * Bk[i] <= kMaxRows; 1 <= w[i] <= 128; 1 <= nb <= 8.  One launch on
+// `stream`, no synchronisation.  Returns the cudaError_t of the launch
+// (0 = success); -1 for bad arguments.
+extern "C" int bsls_proj_simplex_buckets(const void* const* v, void* const* out,
+                                         const void* const* widths,
+                                         const void* const* radius, const long long* S,
+                                         const int* Bk, const int* w, int nb, void* stream) {
   using namespace bsls;
-  if (w < 1 || w > kMaxWidth || Bk < 1) return -1;
-  if (R == 0) return 0;
-  const float* vp = static_cast<const float*>(v);
-  const int* wp = static_cast<const int*>(widths);
-  const float* rp = static_cast<const float*>(radius);
-  float* op = static_cast<float*>(out);
+  if (nb < 1 || nb > kMaxBuckets) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(grid_for(R)), block(kThreads);
-  switch (w) {
-#define BSLS_CASE(W) \
-  case W: proj_rows_fixed<W><<<grid, block, 0, st>>>(vp, wp, rp, op, R, Bk); break;
-    BSLS_CASE(1)
-    BSLS_CASE(2)
-    BSLS_CASE(4)
-    BSLS_CASE(8)
-    BSLS_CASE(16)
-    BSLS_CASE(32)
-#undef BSLS_CASE
-    default:
-      proj_rows_generic<<<grid, block, 0, st>>>(vp, wp, rp, op, R, w, Bk);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (nb == 1) return launch_buckets<1>(v, out, widths, radius, S, Bk, w, nb, st);
+  if (nb == 2) return launch_buckets<2>(v, out, widths, radius, S, Bk, w, nb, st);
+  if (nb <= 4) return launch_buckets<4>(v, out, widths, radius, S, Bk, w, nb, st);
+  return launch_buckets<kMaxBuckets>(v, out, widths, radius, S, Bk, w, nb, st);
 }

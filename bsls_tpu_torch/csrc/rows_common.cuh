@@ -3,9 +3,10 @@
 // Both kernels have the same shape: an (R, w) row-major fp32 array whose
 // rows are independent, R = S * Bk (the S scenarios of a (S, Bk, w) bucket
 // folded into the row axis by a reshape), and per-block parameters
-// widths[Bk] / radius[Bk] that row r reads at r % Bk, so the S-fold
-// broadcast of the parameters never exists in memory.  One thread owns one
-// row and keeps it in registers.
+// widths[Bk] / radius[Bk] that row r = s * Bk + b reads at b, so the S-fold
+// broadcast of the parameters never exists in memory.  A row stays in the
+// registers of the thread (or, in the wide forms of the projection, the
+// lanes) that own it.
 #pragma once
 
 #include <cuda_runtime.h>

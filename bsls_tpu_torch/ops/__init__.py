@@ -26,7 +26,7 @@ from .layout import (
 )
 from .projection import proj_blocks, proj_simplex_padded
 from .pagekernels import band_grmv, band_zmv
-from .rowkernels import pava_rows, proj_simplex_rows
+from .rowkernels import pava_rows, proj_simplex_buckets, proj_simplex_rows
 from .simplex import block_min
 
 __all__ = [
@@ -68,6 +68,7 @@ __all__ = [
     "proj_simplex_padded",
     "launch_counts",
     "pava_rows",
+    "proj_simplex_buckets",
     "proj_simplex_rows",
     "reset_launch_counts",
     "block_min",

@@ -11,23 +11,23 @@ Two versions of the same function live here:
   rho = max{k : u_k - (cumsum_k - radius)/k > 0}, threshold
   tau = (cumsum_rho - radius)/rho, return max(v - tau, 0)).  It runs on any
   device and is what the CUDA kernel is held against.
-* ``proj_blocks`` — what the solvers call.  On a CUDA tensor it launches the
+* ``proj_blocks`` — what the solvers call.  On CUDA tensors it launches the
   hand-written kernel ``proj_simplex_rows`` (``csrc/proj_simplex_rows.cu``,
-  wrapper in ``ops/rowkernels.py``) once per bucket, or raises; it takes the
-  plain version only for a tensor that lies on the CPU.
+  wrapper ``ops/rowkernels.py::proj_simplex_buckets``) once for all buckets,
+  or raises; it takes the plain version only for tensors that lie on the CPU.
 
 Replaces the TPU kernel ``proj_simplex_pallas_tw``
 (``bsls_tpu/ops/pallas/projection_kernel.py:132``) and its dispatch
 ``bsls_tpu/ops/projection.py::proj_blocks``.  The reference's size gate on
 the kernel has no counterpart: the ``(S, Bk, w)`` tensor is contiguous, the
-scenario fold is a reshape, and the kernel indexes ``sizes``/``radius`` by
-``row % Bk``.
+scenario fold is a reshape, and each block of the kernel covers consecutive
+rows of one bucket.
 """
 from __future__ import annotations
 
 import torch
 
-from .rowkernels import proj_simplex_rows
+from .rowkernels import proj_simplex_buckets
 
 __all__ = ["proj_simplex_padded", "proj_blocks"]
 
@@ -65,9 +65,9 @@ def proj_simplex_padded(v: torch.Tensor, mask: torch.Tensor, radius=1.0) -> torc
 
 def proj_blocks(xp, buckets):
     """Apply the projection to every bucket of a padded tuple (per-bucket
-    radii from equilibration).  One kernel launch per bucket on the card."""
-    return tuple(
-        proj_simplex_rows(x, bk.sizes, bk.radius) if x.is_cuda
-        else proj_simplex_padded(x, bk.mask, bk.radius)
-        for x, bk in zip(xp, buckets)
-    )
+    radii from equilibration).  One kernel launch for all buckets on the
+    card; a tuple with a CUDA tensor never reaches the plain version."""
+    if any(x.is_cuda for x in xp):
+        return proj_simplex_buckets(tuple(xp), tuple(bk.sizes for bk in buckets),
+                                    tuple(bk.radius for bk in buckets))
+    return tuple(proj_simplex_padded(x, bk.mask, bk.radius) for x, bk in zip(xp, buckets))

@@ -69,9 +69,13 @@ its error, its time, the plain version's time, its bound and, where one
 PyTorch call computes the same function, that call's time.  ``pava_rows`` is
 also held and timed on the inputs that a short pava solve of medium x 128
 hands it (captured before the kernels phase), with the share of rows that
-pool, and on rows with a NaN.  With ``--ptxas`` the build phase fails unless
-the PAVA kernels of widths 4 and 8 keep everything in registers (no stack
-frame, no spills).
+pool, and on rows with a NaN.  The projection is held at every width 1-40,
+48, 64, 100, 127 and 128 (ties and rows within 100x the radius among them),
+one bucket a launch and eight to a launch, and timed at every path's buckets
+one launch a bucket and all in one launch, as its path launches it; every
+path's projections take one launch each.  With ``--ptxas`` the build phase
+fails unless the PAVA kernels of widths 4 and 8 and the projection's kernel
+(all its forms) keep everything in registers (no stack frame, no spills).
 """
 import argparse
 import contextlib
@@ -137,6 +141,42 @@ def bound(bytes_, ops):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# Projections the solvers asked for on the card since the last reset_counts():
+# each takes one launch of proj_simplex_rows, whatever its number of buckets.
+PROJECTIONS = [0]
+
+
+def count_projections():
+    """Wrap ``ops.projection.proj_blocks`` where the solvers look it up (the
+    module, and ``solvers.base``, which imported the name), so that a path's
+    projections on CUDA tensors are counted beside its launches."""
+    from bsls_tpu_torch.ops import projection
+    from bsls_tpu_torch.solvers import base
+
+    plain = projection.proj_blocks
+
+    def counted(xp, buckets):
+        PROJECTIONS[0] += any(x.is_cuda for x in xp)
+        return plain(xp, buckets)
+
+    projection.proj_blocks = base.proj_blocks = counted
+
+
+def reset_counts():
+    bt.reset_launch_counts()
+    PROJECTIONS[0] = 0
+
+
+def read_counts():
+    """The launch counts since ``reset_counts()``; fails unless every
+    projection took one launch of proj_simplex_rows."""
+    counts = bt.launch_counts()
+    check(counts["proj_simplex_rows"] == PROJECTIONS[0],
+          f"{sys._getframe(1).f_code.co_name}: {counts['proj_simplex_rows']} launches of "
+          f"proj_simplex_rows for {PROJECTIONS[0]} projections (one launch a projection)")
+    return counts
+
+
 # ---------------------------------------------------------------- phases 1-2
 
 
@@ -151,11 +191,12 @@ def phase_device():
          matmul_precision=torch.get_float32_matmul_precision())
 
 
-def pava_resources(log):
-    """ptxas's report on the fixed-width PAVA kernels: {"<w>": {stack frame,
-    spill stores, spill loads, registers}}."""
+def kernel_resources(log, name):
+    """ptxas's report on the kernels whose mangled name holds ``name``, a
+    pattern with one group, the key: {key: {stack frame, spill stores, spill
+    loads, registers}}."""
     out = {}
-    pat = (r"Function properties for \S*pava_rows_fixedILi(\d+)E\S*\s+(\d+) bytes "
+    pat = (r"Function properties for \S*" + name + r"\S*\s+(\d+) bytes "
            r"stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads"
            r"(?:\s+ptxas info\s+: Used (\d+) registers)?")
     for w, frame, st, ld, regs in re.findall(pat, log):
@@ -181,13 +222,21 @@ def phase_build(ptxas):
     if ptxas:
         # the widths of the solve path keep their row and its fit in
         # registers: no stack frame, no spills
-        res = pava_resources(log.getvalue())
+        res = kernel_resources(log.getvalue(), r"pava_rows_fixedILi(\d+)E")
         for w in ("4", "8"):
             r = res.get(w)
             check(r is not None, f"ptxas: no report on pava_rows_fixed<{w}>")
             check(r["stack_frame"] == r["spill_stores"] == r["spill_loads"] == 0,
                   f"ptxas: pava_rows_fixed<{w}> uses local memory: {r}")
-        emit("ptxas", pava_rows_fixed=res)
+        # every form of the projection is inlined into its kernel, one
+        # instantiation for 1, 2, 4 and 8 descriptors
+        proj = kernel_resources(log.getvalue(), r"proj_buckets_kernelILi(\d+)E")
+        check(sorted(proj, key=int) == ["1", "2", "4", str(rowkernels.PROJ_MAX_BUCKETS)],
+              f"ptxas: reports on proj_buckets_kernel<{sorted(proj)}>")
+        for nb, r in proj.items():
+            check(r["stack_frame"] == r["spill_stores"] == r["spill_loads"] == 0,
+                  f"ptxas: a form of proj_buckets_kernel<{nb}> uses local memory: {r}")
+        emit("ptxas", pava_rows_fixed=res, proj_buckets_kernel=proj)
 
 
 # ------------------------------------------------------------------ timing
@@ -233,14 +282,20 @@ def device_ms(fn, reps=20):
 # ------------------------------------------------- phase 3: the row kernels
 
 
-def random_rows(lead, Bk, w, seed):
+def random_rows(lead, Bk, w, seed, kind="random"):
     """Ragged widths (0 = dummy row, radius 1), per-row radius, values of the
-    size the solver produces (a few radii)."""
+    size the solver produces (a few radii); ``kind`` "ties" rounds them to
+    one decimal, "large" draws them within 100x the radius instead."""
     rng = np.random.default_rng(seed)
     widths = rng.integers(0, w + 1, size=Bk).astype(np.int32)
     radius = rng.uniform(0.5, 5.0, size=Bk).astype(np.float32)
     radius[widths == 0] = 1.0
-    v = (rng.standard_normal(lead + (Bk, w)) * 2).astype(np.float32) * radius[:, None]
+    if kind == "large":
+        v = rng.uniform(-100.0, 100.0, lead + (Bk, w)).astype(np.float32) * radius[:, None]
+    else:
+        v = (rng.standard_normal(lead + (Bk, w)) * 2).astype(np.float32) * radius[:, None]
+        if kind == "ties":
+            v = np.round(v, 1)
     to = lambda a: torch.from_numpy(a).to(DEV)
     return to(v), to(widths), to(radius)
 
@@ -249,11 +304,11 @@ def _mask(v, widths):
     return (torch.arange(v.shape[-1], device=v.device) < widths[:, None]).to(v.dtype)
 
 
-def _proj_structure(name, got, widths, radius, pad):
+def _proj_structure(name, got, widths, radius, pad, rowsum_rel=1e-5):
     real = widths > 0
     sums = got.sum(-1)[..., real]
     rel = ((sums - radius[real]).abs() / radius[real]).max() if real.any() else 0.0
-    check(float(rel) <= 1e-5, f"{name}: row sums off by {float(rel):.2e} relative")
+    check(float(rel) <= rowsum_rel, f"{name}: row sums off by {float(rel):.2e} relative")
     check(float(got.min()) >= 0.0, f"{name}: negative entry")
 
 
@@ -265,10 +320,12 @@ def _pava_structure(name, got, widths, radius, pad):
           f"{name}: fit leaves [0, radius]")
 
 
-def compare_rows(name, spec, v, widths, radius):
+def compare_rows(name, spec, v, widths, radius, got=None, **structure):
     """Max abs difference kernel vs plain, in units of the largest radius,
-    plus the structural checks."""
-    got = spec["fn"](v, widths, radius)
+    plus the structural checks.  ``got``: the kernel's output where the
+    caller launched it (a grouped launch), else one launch here."""
+    if got is None:
+        got = spec["fn"](v, widths, radius)
     torch.cuda.synchronize()
     want = spec["plain"](v, widths, radius)
     check(got.shape == v.shape and got.dtype == v.dtype, f"{name}: wrong output shape/dtype")
@@ -276,11 +333,42 @@ def compare_rows(name, spec, v, widths, radius):
     pad = torch.arange(v.shape[-1], device=DEV) >= widths[:, None]
     check(float(got.masked_select(pad.expand_as(got)).abs().sum()) == 0.0,
           f"{name}: padding slots or dummy rows are not zero")
-    spec["structure"](name, got, widths, radius, pad)
+    spec["structure"](name, got, widths, radius, pad, **structure)
     err = float((got - want).abs().max() / radius.max())
     check(err <= ROW_ERR_LIMIT, f"{name}: differs from the plain version by {err:.2e} x max "
           f"radius at shape {tuple(v.shape)}")
     return err
+
+
+PROJ_CHECK_WIDTHS = tuple(range(1, 41)) + (48, 64, 100, 127, 128)
+# Row sums of the rows within 100x the radius: tau, up to 100 r, carries half
+# an ulp (up to 6e-6 r) into every slot of the support, so there the sums are
+# held at 1e-4 relative (1e-5 elsewhere; the plain version's are 3e-5 off).
+LARGE_ROWSUM_REL = 1e-4
+
+
+def check_proj_rows(name, spec, ctx):
+    """The projection at every width 1-40, 48, 64, 100, 127 and 128: ragged
+    widths with dummy rows, (Bk, w) rows and a folded scenario axis, on
+    random rows, rows with ties and rows within 100x the radius; one bucket
+    a launch, then the same cases eight buckets to a launch."""
+    errs, shapes, groups = [], [], {}
+    for k, kind in enumerate(("random", "ties", "large")):
+        kw = {"rowsum_rel": LARGE_ROWSUM_REL} if kind == "large" else {}
+        for w in PROJ_CHECK_WIDTHS:
+            for lead in ((), (3,)):
+                case = random_rows(lead, 1003, w, seed=100 * w + len(lead) + 7919 * k, kind=kind)
+                errs.append(compare_rows(name, spec, *case, **kw))
+                shapes.append([kind, *case[0].shape])
+                groups.setdefault((kind, lead), []).append(case)
+    for (kind, _), cases in groups.items():
+        kw = {"rowsum_rel": LARGE_ROWSUM_REL} if kind == "large" else {}
+        for at in range(0, len(cases), rowkernels.PROJ_MAX_BUCKETS):
+            part = cases[at:at + rowkernels.PROJ_MAX_BUCKETS]
+            outs = rowkernels.proj_simplex_buckets(*zip(*part))
+            for case, got in zip(part, outs):
+                errs.append(compare_rows(name, spec, *case, got=got, **kw))
+    return max(errs), shapes, ROW_ERR_LIMIT
 
 
 def check_rows(name, spec, ctx):
@@ -367,7 +455,7 @@ def measure_rows(name, spec, ctx):
     PAVA also on the inputs a pava solve of that instance hands the kernel."""
     dp = ctx["medium"]
     ms = plain_ms = bytes_ = ops = 0.0
-    errs, per_bucket = [], []
+    errs, per_bucket, inputs = [], [], []
     solve_inputs = ctx.get("pava_inputs") if name == "pava_rows" else None
     for i, bk in enumerate(dp.buckets):
         # the tensors the main path hands the kernel: (S, Bk, w), the bucket's
@@ -379,6 +467,8 @@ def measure_rows(name, spec, ctx):
         vs = [torch.randn(shape, generator=gen, device=DEV) * 2 * bk.radius[:, None]
               for _ in range(n_in)]
         errs.append(compare_rows(name, spec, vs[0], widths, bk.radius))
+        if "grouped" in spec:
+            inputs.append((vs, widths, bk.radius))
         launch = lambda j: spec["fn"](vs[j % n_in], widths, bk.radius)
         k_ms, c_ms = device_ms(launch), call_ms(launch)
         p_ms = call_ms(lambda j: spec["plain"](vs[j % n_in], widths, bk.radius), reps=4)
@@ -408,10 +498,55 @@ def measure_rows(name, spec, ctx):
     b_ms, by = bound(bytes_, ops)
     out = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                library_ms=None, per_bucket=per_bucket)
+    if "grouped" in spec:
+        # the main path's launch: every bucket at once; ``ms`` is its time
+        g = spec["grouped"](inputs, errs)
+        out.update(ms=g["ms"], grouped=g, per_bucket_launches_ms=ms,
+                   share_of_bound=b_ms / g["ms"],
+                   plan_by_width={str(bk.width): spec["plan"](bk.width) for bk in dp.buckets})
     if solve_inputs is not None:
         out.update(solve_inputs_ms=sum(e["solve_inputs_ms"] for e in per_bucket),
                    form_by_width={str(w): f for w, f in rowkernels.PAVA_FORMS.items()})
     return out
+
+
+def sort_comparators(K):
+    """Comparators of the thread forms' sort (csrc/proj_simplex_rows.cu,
+    sort_desc): Batcher's odd-even merge network on the next power of two,
+    pruned to K slots."""
+    P, count, p = 1 << max(0, (K - 1).bit_length()), 0, 1
+    while p < P:
+        k = p
+        while k >= 1:
+            r = k % p
+            count += sum(1 for lo in range(P) if lo >= r and (lo - r) % (2 * k) < k
+                         and lo + k < K and lo // (2 * p) == (lo + k) // (2 * p))
+            k //= 2
+        p *= 2
+    return count
+
+
+def grouped_proj(inputs, errs):
+    """The projection of every bucket in one launch, as ``proj_blocks``
+    launches it: ``inputs`` holds per bucket (the inputs it cycles through,
+    widths, radius).  Held against the plain version (errors appended to
+    ``errs``), then timed (device time of one launch, each bucket cycling
+    through its inputs) beside the summed bound of the buckets."""
+    spec = KERNELS["proj_simplex_rows"]
+    sizes = tuple(w for _, w, _ in inputs)
+    radii = tuple(r for _, _, r in inputs)
+    outs = rowkernels.proj_simplex_buckets(tuple(vs[0] for vs, _, _ in inputs), sizes, radii)
+    for (vs, widths, radius), got in zip(inputs, outs):
+        errs.append(compare_rows("proj_simplex_rows", spec, vs[0], widths, radius, got=got))
+    launch = lambda j: rowkernels.proj_simplex_buckets(
+        tuple(vs[j % len(vs)] for vs, _, _ in inputs), sizes, radii)
+    g_ms, c_ms = device_ms(launch), call_ms(launch)
+    bytes_ = sum(2 * vs[0].numel() * 4 + 8 * w.numel() for vs, w, _ in inputs)
+    ops = sum(vs[0].numel() // vs[0].shape[-1] * spec["ops_per_row"](vs[0].shape[-1])
+              for vs, _, _ in inputs)
+    b_ms, by = bound(bytes_, ops)
+    return {"buckets": [list(vs[0].shape) for vs, _, _ in inputs], "ms": g_ms, "call_ms": c_ms,
+            "bound_ms": b_ms, "bound_by": by, "share_of_bound": b_ms / g_ms}
 
 
 # ------------------------------------------------ phase 3: the page kernels
@@ -727,10 +862,14 @@ KERNELS = {
         source="bsls_tpu_torch/csrc/proj_simplex_rows.cu",
         # the lane-major kernel; its row-major twin is projection_kernel.py:187
         replaces="bsls_tpu/ops/pallas/projection_kernel.py:132",
-        check=check_rows, measure=measure_rows, structure=_proj_structure,
-        widths_of=lambda bk: bk.sizes,
-        # per row: w^2/2 compare-exchanges of 2 operations, ~8 more per slot
-        ops_per_row=lambda w: w * w + 8 * w,
+        check=check_proj_rows, measure=measure_rows, structure=_proj_structure,
+        widths_of=lambda bk: bk.sizes, grouped=grouped_proj,
+        plan=lambda w: list(rowkernels.PROJ_PLAN[w]),
+        # per row, thread form: the network's comparators of 2 operations,
+        # ~10 more per slot (scan, Newton step, output); group form: w^2
+        # compare-and-adds of 3 operations, ~10 more per slot
+        ops_per_row=lambda w: (2 * sort_comparators(w) if rowkernels.PROJ_PLAN[w][0] == "thread"
+                               else 3 * w * w) + 10 * w,
     ),
     "pava_rows": dict(
         fn=rowkernels.pava_rows,
@@ -741,6 +880,7 @@ KERNELS = {
         replaces="bsls_tpu/ops/pallas/pava_kernel.py:132",
         check=check_rows, measure=measure_rows, structure=_pava_structure,
         widths_of=lambda bk: torch.clamp(bk.sizes - 1, min=0),
+        plan=lambda w: rowkernels.PAVA_FORMS.get(w, "generic"),
         # the fixed-width kernels carry a NaN over a row's fitted slots
         nan_widths=(4, 8, 32),
         # per row, minimax form: w(w+1)/2 segments of an add, a multiply, a max
@@ -807,15 +947,15 @@ def phase_solve(phase, prob, dp, line_search, max_iter, kernels, method="pgd", s
                 lipschitz=None, chunk=100):
     """One path: ``solve`` on a prepared instance.  The launch counts are set
     to 0 just before and read just after; each kernel of ``kernels`` must
-    have been launched at least once per iteration and bucket.  Every
+    have been launched at least once per iteration (PAVA: and bucket).  Every
     family checked here descends by construction (apgd by its safeguard, the
     others by an exact step clipped to [0, 1]), so the objective must not
     rise between chunk ends."""
     torch.cuda.reset_peak_memory_stats()
-    bt.reset_launch_counts()
+    reset_counts()
     res = bt.solve(dp, method=method, line_search=line_search, space=space, tol=0.0,
                    max_iter=max_iter, chunk=chunk, lipschitz=lipschitz)
-    counts = bt.launch_counts()
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
     multi = dp.b.ndim == 2
@@ -844,9 +984,11 @@ def phase_solve(phase, prob, dp, line_search, max_iter, kernels, method="pgd", s
     check(abs(f64 - f32) <= 1e-4 * max(1.0, abs(f64)),
           f"{phase}: device objective {f32} vs float64 host objective {f64}")
     for kernel in kernels:
-        check(counts[kernel] >= max_iter * n_buckets,
+        # the projection takes one launch for all buckets, PAVA one a bucket
+        per_iter = 1 if kernel == "proj_simplex_rows" else n_buckets
+        check(counts[kernel] >= max_iter * per_iter,
               f"{phase}: {kernel} launched {counts[kernel]} times, expected >= "
-              f"{max_iter * n_buckets}")
+              f"{max_iter * per_iter}")
     emit(phase, method=method, space=space, line_search=line_search, chunk=chunk,
          iterations=res.iterations, scenarios=S,
          aggregate_iters_per_sec=S * res.steady_iters_per_sec(),
@@ -932,9 +1074,9 @@ def phase_solve_mega(ctx, max_iter=1000, chunk=100):
         os.environ["BSLS_MEGA"] = "1"
         mega.use_mega.cache_clear()
         bt.solve(prob, **{**kw, "max_iter": chunk})  # first launch, outside the timing
-        bt.reset_launch_counts()
+        reset_counts()
         fused = bt.solve(prob, **kw)
-        counts = bt.launch_counts()
+        counts = read_counts()
         os.environ["BSLS_MEGA"] = "0"
         mega.use_mega.cache_clear()
         eager = bt.solve(prob, **kw)
@@ -1119,11 +1261,11 @@ def phase_certify(prob, dp, max_iter=400, certify=150):
     kw = dict(method="pgd", line_search="bbm", tol=0.0, max_iter=max_iter, chunk=100,
               lipschitz=bt.solvers.power_lipschitz(dp))
     r0 = bt.solve(dp, **kw)
-    bt.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     r1 = bt.solve(dp, certify=certify, **kw)
     secs = time.perf_counter() - t0
-    counts = bt.launch_counts()
+    counts = read_counts()
     f0, f1 = np.asarray(r0.objective, np.float64), np.asarray(r1.objective, np.float64)
     g0, g1 = np.asarray(r0.gap, np.float64), np.asarray(r1.gap, np.float64)
     check(bool(np.isfinite(r1.x).all() and np.isfinite(g1).all()), "certify: non-finite result")
@@ -1161,13 +1303,13 @@ def phase_refine(prob, dp, max_iter=400, rounds=3):
     # the unrefined point made feasible in float64 (its fp32 block sums are
     # off by ~1e-7, which moves f64 objectives by ~1e-6 either way)
     f0, gap0, _ = _fw_gap_rel(prob, _repaired(prob, res.x))
-    bt.reset_launch_counts()
+    reset_counts()
     TB._polish_cg = timed_cg
     try:
         pol = TB.refine_polish(prob, dp, res, rounds=rounds)
     finally:
         TB._polish_cg = real_cg
-    counts = bt.launch_counts()
+    counts = read_counts()
     f1, gap1, _ = _fw_gap_rel(prob, pol.x)
     x = np.asarray(pol.x)
     offs = np.concatenate([[0], np.cumsum(prob.partition.sizes)[:-1]])
@@ -1198,7 +1340,7 @@ def phase_refine_certified(base, scenarios=8, max_iter=400, target=1e-6):
     lines = io.StringIO()
     saved = os.environ.get("BSLS_REFINE_TRACE")
     os.environ["BSLS_REFINE_TRACE"] = "1"
-    bt.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(lines):
@@ -1210,7 +1352,7 @@ def phase_refine_certified(base, scenarios=8, max_iter=400, target=1e-6):
         else:
             os.environ["BSLS_REFINE_TRACE"] = saved
     secs = time.perf_counter() - t0
-    counts = bt.launch_counts()
+    counts = read_counts()
     f, gap, terms = _fw_gap_rel(prob, res.x)
     # the certificate bounds f - f* by the FW gap and by f itself (f* >= 0);
     # recomputed here with sums in another order, to float64 rounding of the
@@ -1249,9 +1391,9 @@ def phase_solve_banded_families(ctx, max_iter=200):
     kw = dict(tol=0.0, max_iter=max_iter, chunk=50, lipschitz=L_est)
     total, out = {}, {}
     for method in ("lbfgs", "afw"):
-        bt.reset_launch_counts()
+        reset_counts()
         rb, states = _states_at_chunk_ends(dp, method, kw)
-        counts = bt.launch_counts()
+        counts = read_counts()
         rg = bt.solve(dp_g, method=method, **kw)
         for k in ("band_zmv", "band_grmv"):
             check(counts[k] >= max_iter, f"solve_banded_families: {method} launched {k} "
@@ -1347,9 +1489,10 @@ def check_rows_at(name, dp, scenarios, seed):
     """A row kernel against its plain version at the buckets of a path: the
     widths and radii of its prepared problem, ``scenarios`` leading. Each
     bucket is also timed (device time of one launch, inputs cycled past the
-    L2) beside its bytes bound; both kernels template the same widths, and
-    every other width takes their generic form."""
-    spec, errs, per_bucket = KERNELS[name], [], []
+    L2) beside its bytes bound, under the form its kernel's plan gives its
+    width; the projection also in one launch for all buckets, as its path
+    launches it (``grouped``, None for PAVA)."""
+    spec, errs, per_bucket, inputs = KERNELS[name], [], [], []
     for i, bk in enumerate(dp.buckets):
         Bk, w = bk.mask.shape
         widths = spec["widths_of"](bk)
@@ -1361,12 +1504,14 @@ def check_rows_at(name, dp, scenarios, seed):
         k_ms = device_ms(lambda j: spec["fn"](vs[j % n_in], widths, bk.radius))
         b_ms, by = bound(2 * 4 * scenarios * Bk * w + 8 * Bk,
                          scenarios * Bk * spec["ops_per_row"](w))
-        per_bucket.append({"shape": [scenarios, Bk, w],
-                           "form": "templated" if w in rowkernels.PAVA_FORMS else "generic",
+        per_bucket.append({"shape": [scenarios, Bk, w], "form": spec["plan"](w),
                            "ms": k_ms, "bound_ms": b_ms, "bound_by": by,
                            "share_of_bound": b_ms / k_ms})
+        if "grouped" in spec:
+            inputs.append((vs, widths, bk.radius))
         del vs
-    return max(errs), per_bucket
+    grouped = spec["grouped"](inputs, errs) if "grouped" in spec else None
+    return max(errs), per_bucket, grouped
 
 
 def top_gather_ms(dp, scenarios=(1, 4, 128)):
@@ -1397,13 +1542,13 @@ def phase_solve_eq(ctx):
     base, prob = ctx["eq_base"], ctx["eq_prob"]
     cache, rec = {}, OuterRecords()
     torch.cuda.reset_peak_memory_stats()
-    bt.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = bt.solve_equality_constrained(
         prob, method="pgd", line_search="exact", eq_tol=1e-6, max_iter=EQ_BUDGET,
         inner_iters=EQ_INNER, chunk=100, op_cache=cache, metrics=rec, device=DEV)
     secs = time.perf_counter() - t0
-    counts = bt.launch_counts()
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     (dp, rho_base, L_base, LC, *_), = cache.values()
     S, n = EQ_SCENARIOS, prob.partition.n_flat
@@ -1427,12 +1572,11 @@ def phase_solve_eq(ctx):
     f32 = res.trace_f[:, -1].astype(np.float64)
     rel = float(np.max(np.abs(f32 - f64) / np.maximum(1.0, np.abs(f64))))
     check(rel <= 1e-4, f"solve_eq: device objective differs from the float64 host one by {rel:.2e}")
-    n_buckets = len(dp.buckets)
-    check(counts["proj_simplex_rows"] >= res.iterations * n_buckets,
+    check(counts["proj_simplex_rows"] >= res.iterations,
           f"solve_eq: proj_simplex_rows launched {counts['proj_simplex_rows']} times in "
-          f"{res.iterations} inner iterations over {n_buckets} buckets")
+          f"{res.iterations} inner iterations")
     # kernel 1 against its plain version at this path's buckets, S = 128
-    err, rows = check_rows_at("proj_simplex_rows", dp, S, seed=610)
+    err, rows, grouped = check_rows_at("proj_simplex_rows", dp, S, seed=610)
     ctx["eq_row_errs"]["proj_simplex_rows"] = err
     # the step of the stacked operator under the profiler: idle share and
     # launches per inner step
@@ -1465,7 +1609,7 @@ def phase_solve_eq(ctx):
          launches_per_inner_step=prof["launches_per_iter"],
          largest_device_items_ms_per_step=[[k["name"][:60], k["ms_per_iter"],
                                             k["launches_per_iter"]] for k in prof["kernels"][:8]],
-         rows_by_bucket=rows, rows_max_err=err)
+         rows_by_bucket=rows, rows_grouped=grouped, rows_max_err=err)
 
     # the card against the CPU, S = 4, one set of Lipschitz constants
     prob4 = ctx["eq_prob4"]
@@ -1495,13 +1639,13 @@ def phase_solve_eq_pava(ctx, max_iter=EQ_PAVA_ITERS, inner=EQ_PAVA_INNER):
 
     prob4 = ctx["eq_prob4"]
     cache, rec = {}, OuterRecords()
-    bt.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = bt.solve_equality_constrained(prob4, method="pgd", line_search="pava",
                                         max_iter=max_iter, inner_iters=inner, chunk=100,
                                         op_cache=cache, metrics=rec, device=DEV)
     secs = time.perf_counter() - t0
-    counts = bt.launch_counts()
+    counts = read_counts()
     (dp, rho_base, L_base, LC, *_), = cache.values()
     ctx["eq_pava_unsharded"] = {"outer": rec.outer, "objective": res.objective,
                                 "viol": res.eq_violation, "iterations": res.iterations,
@@ -1513,9 +1657,9 @@ def phase_solve_eq_pava(ctx, max_iter=EQ_PAVA_ITERS, inner=EQ_PAVA_INNER):
     check(counts["pava_rows"] >= res.iterations * n_buckets,
           f"solve_eq_pava: pava_rows launched {counts['pava_rows']} times in "
           f"{res.iterations} inner iterations over {n_buckets} buckets")
-    err, rows = check_rows_at("pava_rows", dp, 4, seed=620)
+    err, rows, _ = check_rows_at("pava_rows", dp, 4, seed=620)
     # the same buckets at S = 128, where a launch is no longer only its latency
-    err128, rows128 = check_rows_at("pava_rows", dp, EQ_SCENARIOS, seed=630)
+    err128, rows128, _ = check_rows_at("pava_rows", dp, EQ_SCENARIOS, seed=630)
     ctx["eq_row_errs"]["pava_rows"] = max(err, err128)
     # the z-space step of the stacked operator under the profiler
     prof = profile_steps(dp, "pava", iters=20)
@@ -1558,7 +1702,7 @@ def phase_solve_eq_traffic(target=1e-6):
         cg_secs[0] += time.perf_counter() - t0
         return out
 
-    bt.reset_launch_counts()
+    reset_counts()
     TB._polish_cg = timed_cg
     t0 = time.perf_counter()
     try:
@@ -1567,7 +1711,7 @@ def phase_solve_eq_traffic(target=1e-6):
     finally:
         TB._polish_cg = real_cg
     secs = time.perf_counter() - t0
-    counts = bt.launch_counts()
+    counts = read_counts()
     t1 = time.perf_counter()
     orc = bt.oracle_solve_eq(prob)
     oracle_secs = time.perf_counter() - t1
@@ -1633,16 +1777,15 @@ def phase_serve(prob, base):
     ep.warmup(SCENARIOS)
     warmup_secs = time.perf_counter() - t0
     reqs = [np.asarray(bt.synthetic.with_scenarios(base, SCENARIOS, seed=s).b) for s in (2, 3, 4)]
-    bt.reset_launch_counts()
+    reset_counts()
     results, walls = [], []
     for B in reqs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         results.append(ep.solve(B, tol=0.0, max_iter=SERVE_ITERS))
         walls.append(time.perf_counter() - t0)
-    counts = bt.launch_counts()
-    n_buckets = len(ep._dp.buckets)
-    check(counts["proj_simplex_rows"] >= len(reqs) * SERVE_ITERS * n_buckets,
+    counts = read_counts()
+    check(counts["proj_simplex_rows"] >= len(reqs) * SERVE_ITERS,
           f"serve: proj_simplex_rows launched {counts['proj_simplex_rows']} times")
     # what a request pays outside its chunk loop, piece by piece: the upload
     # of b, the power iteration, the throwaway warm-up step
@@ -1723,7 +1866,7 @@ def phase_serve_queue(prob, base, threads=8, per_thread=8, width=32, mesh=None):
         except Exception as exc:  # noqa: BLE001 - re-raised below
             errors.append(exc)
 
-    bt.reset_launch_counts()
+    reset_counts()
     workers = [threading.Thread(target=client, args=(k,)) for k in range(threads)]
     t0 = time.perf_counter()
     for w in workers:
@@ -1731,7 +1874,7 @@ def phase_serve_queue(prob, base, threads=8, per_thread=8, width=32, mesh=None):
     for w in workers:
         w.join(timeout=600)
     wall = time.perf_counter() - t0
-    counts = bt.launch_counts()
+    counts = read_counts()
     q.close(timeout=30)
     check(not q._worker.is_alive() and not any(w.is_alive() for w in workers),
           "serve_queue: a thread did not stop")
@@ -1775,11 +1918,11 @@ def phase_serve_eq(ctx, perturb=0.02, target=1e-6):
     prob = bt.synthetic.make_config(cfg.config, seed=cfg.seed)
     ep = bt.Endpoint(prob, method=cfg.method, line_search=cfg.line_search, chunk=cfg.chunk,
                      device=DEV)
-    bt.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     r1 = ep.solve(np.asarray(prob.b), tol=cfg.tol, max_iter=cfg.max_iter, refine_tol=target)
     secs1 = time.perf_counter() - t0
-    counts = bt.launch_counts()
+    counts = read_counts()
     check(r1.converged and r1.eq_violation <= 1e-6, f"serve_eq: request 1 converged "
           f"{r1.converged}, violation {r1.eq_violation:.2e}")
     check(r1.refine_fw_gap is not None and r1.refine_fw_gap <= target,
@@ -1832,12 +1975,12 @@ def phase_serve_eq(ctx, perturb=0.02, target=1e-6):
     try:
         for k, B in enumerate((B1, B2)):
             inner.clear()
-            bt.reset_launch_counts()
+            reset_counts()
             t0 = time.perf_counter()
             res = ep_big.solve(B, max_iter=EQ_BUDGET, inner_iters=EQ_INNER, eq_tol=1e-6,
                                sensitivity=False)
             secs = time.perf_counter() - t0
-            c = bt.launch_counts()
+            c = read_counts()
             for name in counts:
                 counts[name] += c[name]
             check(res.x.shape == (EQ_SCENARIOS, big.partition.n_flat), "serve_eq: x shape")
@@ -1932,11 +2075,11 @@ def phase_checkpoint(prob, dp, total=400):
         _, meta = load_state(found, like)
         resumed_from = int(meta["iteration"])
         check(0 < resumed_from < total, f"checkpoint: resumed from iteration {resumed_from}")
-        bt.reset_launch_counts()
+        reset_counts()
         resumed = bt.solve(dp, method="pgd", line_search="exact", tol=0.0, max_iter=total,
                            chunk=100, checkpoint_path=ck, checkpoint_every=1, checkpoint_keep=2,
                            resume=True)
-        counts = bt.launch_counts()
+        counts = read_counts()
         full = bt.solve(dp, method="pgd", line_search="exact", tol=0.0, max_iter=total,
                         chunk=100)
         diff = _rel_diff(resumed.objective, full.objective)
@@ -2045,9 +2188,9 @@ def phase_mesh_world1(ctx):
                      ("mesh", lambda: solve_sharded((dpm, part, False), mesh, **kw))):
         torch.cuda.reset_peak_memory_stats(DEV)
         resident = torch.cuda.memory_allocated(DEV) / 1e9  # both problems and earlier phases
-        bt.reset_launch_counts()
+        reset_counts()
         runs[key] = run()
-        launches = bt.launch_counts()  # the mesh's, read last
+        launches = read_counts()  # the mesh's, read last
         peaks[key] = {"peak": _peak_gb(), "resident_before": resident}
     fm = np.asarray(runs["mesh"].objective, np.float64)
     check(fm.shape == (S,) and np.all(np.isfinite(fm)), "mesh_world1: bad mesh objective")
@@ -2067,7 +2210,7 @@ def phase_mesh_world1(ctx):
         bk, mask=bk.mask[half:], sizes=bk.sizes[half:], radius=bk.radius[half:]),))
     row_checks = {}
     for name in ("proj_simplex_rows", "pava_rows"):
-        err, per_bucket = check_rows_at(name, shard, S // 2, seed=81)
+        err, per_bucket, _ = check_rows_at(name, shard, S // 2, seed=81)
         row_checks[name] = {"max_abs_err": err, **per_bucket[0]}
     ctx["mesh_trace_at_rank_iters"] = runs["mesh"].trace_f[:, MESH_RANK_ITERS - 1]
     ctx["mesh_L"] = L_est
@@ -2144,12 +2287,12 @@ def mesh_large_rank(spec, workdir):
     prob = Problem.load(os.path.join(workdir, "large.npz"))
     load_secs = time.perf_counter() - t0
     mesh = bt.make_mesh(block=2, scenario=2, device=DEV)
-    bt.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = bt.solve(prob, mesh=mesh, method="pgd", line_search="exact", tol=0.0,
                    max_iter=MESH_RANK_ITERS, chunk=MESH_RANK_ITERS, lipschitz=spec["L"])
     solve_secs = time.perf_counter() - t0
-    return {"coords": mesh.coords, "launches": bt.launch_counts(),
+    return {"coords": mesh.coords, "launches": read_counts(),
             "loop_secs": float(np.sum(res.chunk_times)), "solve_secs": solve_secs,
             "load_secs": load_secs, "objective": np.asarray(res.objective).tolist(),
             "x_sum": float(np.sum(res.x))}
@@ -2323,12 +2466,12 @@ def eq_on_mesh(prob, mesh, rows, consts, **kw):
     (key, entry), = cache.items()
     cache[key] = (entry[0], *consts, entry[4], entry[5])
     rec = OuterRecords()
-    bt.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = bt.solve_equality_constrained(prob, mesh=mesh, shard_rows=rows, op_cache=cache,
                                         metrics=rec, **kw)
     secs = time.perf_counter() - t0
-    return res, rec.outer, entry[0][0], build_secs, bt.launch_counts(), secs
+    return res, rec.outer, entry[0][0], build_secs, read_counts(), secs
 
 
 def _outer_rel(outer, want):
@@ -2399,7 +2542,7 @@ def phase_mesh_eq_world1(ctx):
         dataclasses.replace(bk, mask=bk.mask[: bk.mask.shape[0] // 2],
                             sizes=bk.sizes[: bk.mask.shape[0] // 2],
                             radius=bk.radius[: bk.mask.shape[0] // 2]) for bk in dp.buckets))
-    err, rows_at = check_rows_at("proj_simplex_rows", half, EQ_SCENARIOS // 2, seed=91)
+    err, rows_at, grouped = check_rows_at("proj_simplex_rows", half, EQ_SCENARIOS // 2, seed=91)
     emit("mesh_eq_world1", instance=f"traffic_like(seed=0, num_blocks=10000, m=100000, "
          f"num_eq=50) x {EQ_SCENARIOS}", backend=torch.distributed.get_backend(),
          mesh=dict(mesh.shape), budget=EQ_BUDGET, inner_iters_max=EQ_INNER,
@@ -2413,7 +2556,7 @@ def phase_mesh_eq_world1(ctx):
          nccl_share_of_busy=prof.get("nccl_share_of_busy"),
          largest_device_items_ms_per_step=[[k["name"][:60], k["ms_per_iter"],
                                             k["launches_per_iter"]] for k in prof["kernels"][:8]],
-         kernel1_at_rank_tile={"max_abs_err": err, "by_bucket": rows_at},
+         kernel1_at_rank_tile={"max_abs_err": err, "by_bucket": rows_at, "grouped": grouped},
          secs=time.perf_counter() - t_phase)
     for name, r in runs.items():
         same_rho, rel, viol = r["_checks"]
@@ -2421,7 +2564,7 @@ def phase_mesh_eq_world1(ctx):
         check(rel <= EQ_MESH_RTOL, f"mesh_eq_world1 {name}: outer objectives {rel:.2e} "
               f"relative off the unsharded loop's (limit {EQ_MESH_RTOL})")
         check(viol <= max(1e-6, 3 * want["viol"]), f"mesh_eq_world1 {name}: violation {viol}")
-        check(r["launches"]["proj_simplex_rows"] >= r["iterations"] * len(dp.buckets),
+        check(r["launches"]["proj_simplex_rows"] >= r["iterations"],
               f"mesh_eq_world1 {name}: {r['launches']['proj_simplex_rows']} projections")
     check(counts4["pava_rows"] >= res4.iterations * len(dp4.buckets),
           f"mesh_eq_world1 pava: {counts4['pava_rows']} pava_rows launches")
@@ -2524,15 +2667,15 @@ def phase_serve_mesh(ctx, prob, base):
     build_secs = time.perf_counter() - t0
     ep.warmup(SCENARIOS)
     reqs = [np.asarray(bt.synthetic.with_scenarios(base, SCENARIOS, seed=s).b) for s in (2, 3, 4)]
-    bt.reset_launch_counts()
+    reset_counts()
     results, walls = [], []
     for B in reqs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         results.append(ep.solve(B, tol=0.0, max_iter=SERVE_ITERS))
         walls.append(time.perf_counter() - t0)
-    counts = bt.launch_counts()
-    check(counts["proj_simplex_rows"] >= len(reqs) * SERVE_ITERS * len(ep._dp.buckets),
+    counts = read_counts()
+    check(counts["proj_simplex_rows"] >= len(reqs) * SERVE_ITERS,
           f"serve_mesh: proj_simplex_rows launched {counts['proj_simplex_rows']} times")
     ep_u = bt.Endpoint(prob, method="pgd", line_search="exact", chunk=100, device=DEV)
     diffs = []
@@ -2553,13 +2696,13 @@ def phase_serve_mesh(ctx, prob, base):
     small = bt.synthetic.make_config(cfg.config, seed=cfg.seed)
     ep_t = bt.Endpoint(small, method=cfg.method, line_search=cfg.line_search,
                        chunk=cfg.chunk, mesh=mesh)
-    bt.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     r1 = ep_t.solve(np.asarray(small.b), tol=cfg.tol, max_iter=cfg.max_iter, refine_tol=1e-6)
     t1 = time.perf_counter()
     r2 = ep_t.solve(ctx["serve_eq_traffic"]["b2"], tol=cfg.tol, max_iter=cfg.max_iter)
     t2 = time.perf_counter()
-    for k, c in bt.launch_counts().items():
+    for k, c in read_counts().items():
         counts[k] += c
     f_orc = ctx["serve_eq_traffic"]["oracle"]
     traffic = {"request1_secs": t1 - t0, "request1_converged": r1.converged,
@@ -2585,12 +2728,12 @@ def phase_serve_mesh(ctx, prob, base):
     SH.shard_problem, SH.shard_problem_rows = counted(real[0]), counted(real[1])
     try:
         for B in (B1, B2):
-            bt.reset_launch_counts()
+            reset_counts()
             t0 = time.perf_counter()
             res = ep_eq.solve(B, max_iter=SERVE_EQ_BUDGET, inner_iters=EQ_INNER, eq_tol=1e-6,
                               sensitivity=False)
             secs = time.perf_counter() - t0
-            c = bt.launch_counts()
+            c = read_counts()
             for k in counts:
                 counts[k] += c[k]
             _check_simplices("serve_mesh eq", big, res.x)
@@ -2691,6 +2834,7 @@ def main():
     ap.add_argument("--mesh-rank-child", nargs=2, default=None, metavar=("RANK", "DIR"),
                     help="a rank process of the mesh_ranks phase")
     args = ap.parse_args()
+    count_projections()
     if args.chunk0_child:
         chunk0_child()
         return

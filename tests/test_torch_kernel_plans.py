@@ -1,7 +1,8 @@
 """What can be held without a card of the redesigned kernels of the PyTorch
 port: the Python statements of the rules by which the C launchers pick a kernel
 or a form and size a launch (``pagekernels.grmv_path``, ``chunkkernel.chunk_plan``,
-``rowkernels.PAVA_FORMS``) at the shapes ``chip_smoke.py`` runs on the card; the
+``rowkernels.PAVA_FORMS``, ``rowkernels.PROJ_PLAN``) at the shapes
+``chip_smoke.py`` runs on the card; the
 recurrence the fused chunk now follows (gradient carried from step to step)
 against the plain loop; and the plain loop against the reference's kernel on a
 ragged-width instance."""
@@ -224,3 +225,71 @@ def test_pava_forms_agree_with_the_cuda_switch():
     assert set(rowkernels.PAVA_FORMS.values()) == {"minimax"}
     kernel = re.search(r"pava_rows_fixed\(.*?\n\}", src, re.S).group(0)
     assert re.findall(r"fit_\w+", kernel) == ["fit_minimax"]
+
+
+def _proj_source():
+    with open(os.path.join(CSRC, "proj_simplex_rows.cu")) as fh:
+        return fh.read()
+
+
+def test_proj_plan_agrees_with_the_cuda_switch():
+    """``rowkernels.PROJ_PLAN`` states the table BSLS_PROJ_FORMS that both the
+    kernel's switch and the launcher's choice of form expand, and the caps
+    are the source's."""
+    src = _proj_source()
+    table = src[src.index("#define BSLS_PROJ_FORMS(X)"):src.index("struct ProjBucket")]
+    forms = tuple(tuple(int(v) for v in m)
+                  for m in re.findall(r"X\((\d+), (\d+), (\d+), (\d+)\)", table))
+    assert forms == rowkernels._PROJ_FORMS
+    plan = {w: ("thread" if g == 1 else "group", g, k)
+            for lo, hi, g, k in forms for w in range(lo, hi + 1)}
+    assert plan == rowkernels.PROJ_PLAN
+    kernel = re.search(r"proj_buckets_kernel\(const __grid_constant__ ProjLaunch<NB> L\).*?\n\}",
+                       src, re.S).group(0)
+    assert "switch (bk.form)" in kernel and "BSLS_PROJ_FORMS(BSLS_FORM_CASE)" in kernel
+    assert "BSLS_PROJ_FORMS(BSLS_FORM_CODE)" in src
+    assert src.count('extern "C"') == 1 and 'extern "C" int bsls_proj_simplex_buckets(' in src
+    # one instantiation for 1, 2, 4 and kMaxBuckets descriptors
+    launcher = src[src.index('extern "C" int bsls_proj_simplex_buckets('):]
+    assert re.findall(r"launch_buckets<(\w+)>", launcher) == ["1", "2", "4", "kMaxBuckets"]
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kMaxBuckets"]) == rowkernels.PROJ_MAX_BUCKETS
+    rows = re.search(r"constexpr long long kMaxRows = \(1LL << (\d+)\) - \(1LL << (\d+)\);", src)
+    assert 2 ** int(rows.group(1)) - 2 ** int(rows.group(2)) == rowkernels.PROJ_MAX_ROWS
+    # the rows of a block, less one, fit below the cap's headroom
+    assert max(128 // g for _, _, g, _ in forms) <= 2 ** int(rows.group(2))
+    with open(os.path.join(CSRC, "rows_common.cuh")) as fh:
+        common = dict(re.findall(r"constexpr int (k\w+) = (\d+);", fh.read()))
+    assert int(common["kMaxWidth"]) == rowkernels.MAX_WIDTH
+
+
+@pytest.mark.parametrize("form", rowkernels._PROJ_FORMS, ids=lambda f: f"w{f[0]}-{f[1]}")
+def test_every_proj_width_has_a_register_form(form):
+    """Each entry covers its widths with lanes x values slots and no value a
+    lane to spare; a group fits a warp's shuffle segment and holds few values
+    a lane (four arrays of them); a thread form is exactly its one width (its
+    loads take the width as the row stride) and sorts at most 16 slots."""
+    lo, hi, lanes, values = form
+    assert 32 % lanes == 0 and lanes * values >= hi and lanes * (values - 1) < lo
+    if lanes == 1:
+        assert lo == hi == values <= 16
+    else:
+        assert values <= 4
+
+
+def test_proj_plan_covers_every_width_without_the_generic_form():
+    """Every width 1..MAX_WIDTH has one form, and the projection's source no
+    longer reaches the local-memory row of proj_device.cuh or a remainder of
+    the 64-bit row index."""
+    assert sorted(rowkernels.PROJ_PLAN) == list(range(1, rowkernels.MAX_WIDTH + 1))
+    assert {p[0] for p in rowkernels.PROJ_PLAN.values()} == {"thread", "group"}
+    his = [f[1] for f in rowkernels._PROJ_FORMS]
+    los = [f[0] for f in rowkernels._PROJ_FORMS]
+    assert los == [1] + [h + 1 for h in his[:-1]] and his[-1] == rowkernels.MAX_WIDTH
+    src = _proj_source()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    assert "proj_device.cuh" not in code and "proj_simplex_row(" not in code
+    assert "kMaxWidth]" not in code and "row % " not in code
+    # the one remainder by Bk left is 32-bit, of a block index in a small bucket
+    assert re.findall(r"\w+ % \w*Bk", code) == ["b % Bk"]
+    assert re.search(r"unsigned int block_of\(unsigned int b0, unsigned int off,", code)
