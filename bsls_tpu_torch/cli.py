@@ -20,7 +20,9 @@ for an equality-constrained instance (``traffic``; it runs the
 augmented-Lagrangian loop on the gather layout), and objective-vs-oracle
 with time-to-1e-6-relative-gap when --oracle supplies f*: one f* per
 scenario, and ``rel_gap_vs_oracle`` is the worst scenario's gap against its
-own f*.  Every solver family of the reference runs (``--method``).
+own f*.  Every solver family of the reference runs (``--method``).  The
+solve runs in float32 whatever a configuration file's ``dtype`` says, as the
+reference's CLI does (the CUDA kernels take float32 only).
 ``--checkpoint``/``--checkpoint-every``/``--resume`` checkpoint the solver
 state every K chunks (outer iterations on an equality-constrained instance)
 and resume from the newest checkpoint; ``--profile-dir`` writes a
@@ -157,20 +159,18 @@ def main(argv=None):
                 # itself (on a mesh, each rank its tile); refine/refine_tol
                 # are its finishing outers
                 dp = None
-                res = bsls.solve(prob, dtype=getattr(torch, cfg.dtype), refine=cfg.refine,
+                res = bsls.solve(prob, refine=cfg.refine,
                                  refine_tol=cfg.refine_tol, device=dev, mesh=mesh, **kw)
             elif mesh is not None:
                 from bsls_tpu_torch.parallel.sharding import shard_problem, solve_sharded
 
-                dp, part = shard_problem(prob, mesh, dtype=getattr(torch, cfg.dtype),
-                                         equilibrate=cfg.equilibrate, layout=cfg.layout)
+                dp, part = shard_problem(prob, mesh, equilibrate=cfg.equilibrate, layout=cfg.layout)
                 res = solve_sharded((dp, part, np.ndim(prob.b) == 1), mesh, **kw)
                 if rounds:  # the gathered result, polished on the host
                     res = refine_polish(prob, None, res, rounds=rounds,
                                         target_rel_gap=cfg.refine_tol)
             else:
-                dp = bsls.prepare(prob, dtype=getattr(torch, cfg.dtype),
-                                  equilibrate=cfg.equilibrate, layout=cfg.layout, device=dev)
+                dp = bsls.prepare(prob, equilibrate=cfg.equilibrate, layout=cfg.layout, device=dev)
                 res = bsls.solve(dp, **kw)
                 # the polish of solve(refine=...) on the prepared layout (solve
                 # takes the refine options only with the host Problem, which it

@@ -70,10 +70,6 @@
 
 namespace bsls {
 
-constexpr int kMaxBuckets = 8;
-// Rows a bucket may hold (S * Bk): the row index of a block's last row fits
-// 32 bits.
-constexpr long long kMaxRows = (1LL << 32) - (1LL << 12);
 constexpr unsigned int kFull = 0xffffffffu;
 // Thread forms up to this width keep the row's first read in registers
 // beside its sorted copy; wider ones read the row again after the threshold.
@@ -111,62 +107,6 @@ struct ProjLaunch {
   ProjBucket b[NB];
   int nb;
 };
-
-// Row-contiguous loads of a thread form (K == w): 16- or 8-byte vectors where
-// the bucket's pointers are aligned, through the read-only path (__ldg: the
-// input never aliases an output of the launch).
-template <int K>
-__device__ __forceinline__ void load_thread_row(const float* __restrict__ src, bool vec,
-                                                float (&x)[K]) {
-  if constexpr (K % 4 == 0) {
-    if (vec) {
-#pragma unroll
-      for (int q = 0; q < K / 4; ++q) {
-        const float4 t = __ldg(reinterpret_cast<const float4*>(src) + q);
-        x[4 * q] = t.x;
-        x[4 * q + 1] = t.y;
-        x[4 * q + 2] = t.z;
-        x[4 * q + 3] = t.w;
-      }
-      return;
-    }
-  } else if constexpr (K % 2 == 0) {
-    if (vec) {
-#pragma unroll
-      for (int q = 0; q < K / 2; ++q) {
-        const float2 t = __ldg(reinterpret_cast<const float2*>(src) + q);
-        x[2 * q] = t.x;
-        x[2 * q + 1] = t.y;
-      }
-      return;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < K; ++k) x[k] = __ldg(src + k);
-}
-
-template <int K>
-__device__ __forceinline__ void store_thread_row(float* __restrict__ dst, bool vec,
-                                                 const float (&x)[K]) {
-  if constexpr (K % 4 == 0) {
-    if (vec) {
-#pragma unroll
-      for (int q = 0; q < K / 4; ++q)
-        reinterpret_cast<float4*>(dst)[q] =
-            make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
-      return;
-    }
-  } else if constexpr (K % 2 == 0) {
-    if (vec) {
-#pragma unroll
-      for (int q = 0; q < K / 2; ++q)
-        reinterpret_cast<float2*>(dst)[q] = make_float2(x[2 * q], x[2 * q + 1]);
-      return;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < K; ++k) dst[k] = x[k];
-}
 
 // Sort u descending with Batcher's odd-even merge network for the next power
 // of two, pruned to the first K slots: every comparator sends the larger
@@ -222,24 +162,6 @@ __device__ __forceinline__ void reload_thread_row(const float* src, bool vec, fl
 #pragma unroll
   for (int k = 0; k < K; ++k)
     asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(x[k]) : "l"(src + k));
-}
-
-// A bucket's rows are its scenarios' Bk rows end to end.  The block index of
-// a block's first row r0: r0 - Bk * (r0 / Bk), the quotient by the bucket's
-// magic number (no division on the card).
-__device__ __forceinline__ unsigned int first_block_index(const ProjBucket& bk,
-                                                          unsigned int r0) {
-  const unsigned int t = __umulhi(r0, bk.magic);
-  return r0 - bk.Bk * ((t + ((r0 - t) >> bk.shift1)) >> bk.shift2);
-}
-
-// Block index of row `off` of a block whose first row has block index b0: one
-// subtraction, or a 32-bit remainder where the bucket has fewer rows a
-// scenario than a block.
-__device__ __forceinline__ unsigned int block_of(unsigned int b0, unsigned int off,
-                                                 unsigned int Bk, unsigned int span) {
-  const unsigned int b = b0 + off;
-  return b < Bk ? b : (Bk >= span ? b - Bk : b % Bk);
 }
 
 // Thread form: one row a thread, K = w values in its registers.  The row's
@@ -442,18 +364,12 @@ int launch_buckets(const void* const* v, void* const* out, const void* const* wi
     const long long rows = S[i] * Bk[i];
     const std::uintptr_t addr = reinterpret_cast<std::uintptr_t>(v[i]) |
                                 reinterpret_cast<std::uintptr_t>(out[i]);
-    // magic number of Bk: l = ceil(log2 Bk), m = 2^32 (2^l - Bk) / Bk + 1
-    int l = 0;
-    while ((1LL << l) < Bk[i]) ++l;
-    const unsigned int magic = static_cast<unsigned int>(
-        (((1ULL << 32) * ((1ULL << l) - static_cast<unsigned long long>(Bk[i]))) /
-         static_cast<unsigned long long>(Bk[i])) + 1);
+    const Magic m = magic_of(static_cast<unsigned int>(Bk[i]));
     L.b[i] = ProjBucket{static_cast<const float*>(v[i]), static_cast<float*>(out[i]),
                         static_cast<const int*>(widths[i]),
                         static_cast<const float*>(radius[i]), static_cast<unsigned int>(rows),
-                        static_cast<unsigned int>(Bk[i]), magic, l < 1 ? l : 1,
-                        l > 1 ? l - 1 : 0, w[i], form, addr % 16 == 0 ? 1 : 0,
-                        static_cast<unsigned int>(blocks)};
+                        static_cast<unsigned int>(Bk[i]), m.magic, m.shift1, m.shift2, w[i],
+                        form, addr % 16 == 0 ? 1 : 0, static_cast<unsigned int>(blocks)};
     blocks += (rows + span - 1) / span;
     if (blocks >= (1LL << 31)) return -1;  // one 1-D grid
   }

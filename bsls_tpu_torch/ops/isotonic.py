@@ -14,10 +14,12 @@ Two versions of the same function live here:
   as an O(w^2) dense computation per block (exactly the PAVA output), then
   clips: uniform box bounds commute with the monotone-cone projection.  The
   means tensor is (chunk, w, w); ``chunk`` bounds peak memory for large B.
-* ``pava_bounded`` — what the solvers call.  On a CUDA tensor it launches the
-  hand-written kernel ``pava_rows`` (``csrc/pava_rows.cu``, wrapper in
-  ``ops/rowkernels.py``), or raises; it takes the plain version only for a
-  tensor that lies on the CPU.
+* ``pava_blocks`` — what the solvers call, the z-space projection of every
+  bucket of a padded tuple.  On CUDA tensors it launches the hand-written
+  kernel ``pava_rows`` (``csrc/pava_rows.cu``, wrapper
+  ``ops/rowkernels.py::pava_buckets``) once for all buckets, or raises; it
+  takes the plain version only for tensors that lie on the CPU.
+  ``pava_bounded`` is the same for one bucket.
 
 Replaces the TPU kernel ``pava_pallas_tw``
 (``bsls_tpu/ops/pallas/pava_kernel.py:132``) and its dispatch
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from .rowkernels import pava_rows
+from .rowkernels import pava_buckets, pava_rows
 
 __all__ = ["pava_padded", "pava_bounded", "pava_blocks"]
 
@@ -112,6 +114,12 @@ def pava_bounded(y: torch.Tensor, widths: torch.Tensor, radius) -> torch.Tensor:
 
 
 def pava_blocks(yp, buckets):
-    """Apply [0, radius]-bounded isotonic regression per bucket (z-space
-    projection onto the radius-scaled order simplex)."""
-    return tuple(pava_bounded(y, bk.sizes, bk.radius) for y, bk in zip(yp, buckets))
+    """The z-space projection of every bucket of a padded tuple: the
+    [0, radius]-bounded nondecreasing fit of each row's first ``zwidths``
+    slots (block size - 1) onto the radius-scaled order simplex.  One kernel
+    launch for all buckets on the card; a tuple with a CUDA tensor never
+    reaches the plain version."""
+    if any(y.is_cuda for y in yp):
+        return pava_buckets(tuple(yp), tuple(bk.zwidths for bk in buckets),
+                            tuple(bk.radius for bk in buckets))
+    return tuple(pava_bounded(y, bk.zwidths, bk.radius) for y, bk in zip(yp, buckets))

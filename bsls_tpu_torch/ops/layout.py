@@ -41,7 +41,7 @@ code path.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Union
 
 import numpy as np
@@ -63,6 +63,7 @@ __all__ = [
     "to_device_matrix",
     "block_scales",
     "prepare",
+    "check_dtype",
     "resolve_device",
     "flat_to_padded",
     "padded_to_flat",
@@ -80,6 +81,18 @@ __all__ = [
     "rdot",
     "xmatdot",
 ]
+
+
+def check_dtype(dtype, device) -> None:
+    """The CUDA kernels (``proj_simplex_rows``, ``pava_rows``,
+    ``band_zmv``/``band_grmv``, ``pgd_chunk``) take float32 only, so a CUDA
+    device takes no other dtype: refused here, from the device's type alone,
+    before any upload or CUDA call.  Every other device takes any dtype."""
+    if torch.device(device).type == "cuda" and dtype != torch.float32:
+        raise ValueError(
+            f"dtype={dtype} on a CUDA device: the CUDA kernels proj_simplex_rows, pava_rows, "
+            "band_zmv/band_grmv and pgd_chunk take float32 only; pass dtype=torch.float32 "
+            "(the default) or device='cpu'")
 
 
 def resolve_device(device) -> torch.device:
@@ -158,6 +171,12 @@ class DeviceBucket:
     sizes: torch.Tensor  # (Bk,) int32 true block sizes (0 for dummy rows)
     radius: torch.Tensor  # (Bk,) simplex radius per block (block equilibration)
     width: int
+    # (Bk,) int32 slots of the z-space fit, max(sizes - 1, 0): derived from
+    # sizes once here (also by dataclasses.replace), not in every step
+    zwidths: torch.Tensor = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "zwidths", torch.clamp(self.sizes - 1, min=0))
 
 
 @dataclass(frozen=True)
@@ -794,6 +813,7 @@ def prepare(
     the stacked problem ``[A; sqrt(rho) C]`` (whose ``C`` is ``None``)."""
     if layout not in ("auto", "banded", "gather"):
         raise ValueError(f"unknown layout {layout!r}")
+    check_dtype(dtype, device)
     if problem.C is not None:
         raise ValueError(
             "prepare() takes no equality-constrained Problem (Problem.C is set): "

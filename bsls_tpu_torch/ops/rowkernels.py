@@ -7,8 +7,9 @@ the error code of the launch, does not synchronise, and adds one to its
 launch count where it launches — and nowhere else.  Nothing here falls back.
 The plain PyTorch versions of both functions are
 ``ops.projection.proj_simplex_padded`` and ``ops.isotonic.pava_padded``.
-The projection takes every bucket of a projection in one launch
-(``proj_simplex_buckets``); ``proj_simplex_rows`` is its one-bucket case.
+Each kernel takes every bucket of a call in one launch
+(``proj_simplex_buckets``, ``pava_buckets``); ``proj_simplex_rows`` and
+``pava_rows`` are their one-bucket cases.
 """
 from __future__ import annotations
 
@@ -18,16 +19,16 @@ import torch
 
 from . import cudalib
 
-__all__ = ["proj_simplex_rows", "proj_simplex_buckets", "pava_rows", "MAX_WIDTH",
-           "PROJ_PLAN", "PROJ_MAX_BUCKETS", "PROJ_MAX_ROWS", "PAVA_FORMS"]
+__all__ = ["proj_simplex_rows", "proj_simplex_buckets", "pava_rows", "pava_buckets",
+           "MAX_WIDTH", "MAX_BUCKETS", "MAX_ROWS", "PROJ_PLAN", "PAVA_PLAN"]
 
 MAX_WIDTH = 128  # kMaxWidth in csrc/rows_common.cuh
-# Buckets one launch of the projection takes (kMaxBuckets in
-# csrc/proj_simplex_rows.cu); a longer bucket list takes more launches.
-PROJ_MAX_BUCKETS = 8
-# Rows a bucket of the projection may hold, S * Bk (kMaxRows in
-# csrc/proj_simplex_rows.cu: a block's rows are indexed in 32 bits).
-PROJ_MAX_ROWS = 2 ** 32 - 2 ** 12
+# Buckets one launch of either kernel takes (kMaxBuckets in
+# csrc/rows_common.cuh); a longer bucket list takes more launches.
+MAX_BUCKETS = 8
+# Rows a bucket may hold, S * Bk (kMaxRows in csrc/rows_common.cuh: a
+# block's rows are indexed in 32 bits).
+MAX_ROWS = 2 ** 32 - 2 ** 12
 # The projection's form by width (BSLS_PROJ_FORMS in csrc/proj_simplex_rows.cu):
 # (first width, last width, lanes a row, values a lane).  One lane a row is
 # the "thread" form: the row in its registers, sorted by a network; more
@@ -39,20 +40,16 @@ _PROJ_FORMS = (*((w, w, 1, w) for w in range(1, 17)),
 # width -> (form, lanes a row, values a lane), every width 1..MAX_WIDTH
 PROJ_PLAN = {w: ("thread" if lanes == 1 else "group", lanes, values)
              for lo, hi, lanes, values in _PROJ_FORMS for w in range(lo, hi + 1)}
-# The fit that each templated width takes in csrc/pava_rows.cu (the switch of
-# bsls_pava_rows); every other width up to MAX_WIDTH takes the generic kernel,
-# which runs the stack on the row in device memory.
-PAVA_FORMS = {1: "minimax", 2: "minimax", 4: "minimax", 8: "minimax", 16: "minimax",
-              32: "minimax"}
-
-
-def _fn(fn_name):
-    fn = getattr(cudalib.load(), fn_name)
-    if fn.argtypes is None:
-        ptr = ctypes.c_void_p
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ptr]
-    return fn
+# PAVA's form by width (BSLS_PAVA_FORMS in csrc/pava_rows.cu): (first width,
+# last width, rows a block of the stack form, 0 for the thread form).  The
+# "thread" form fits one row a thread in its registers by the minimax formula
+# (one entry a width); the "stack" form stages a block's rows in shared memory
+# and runs pool-adjacent-violators there, one row a thread.
+_PAVA_FORMS = (*((w, w, 0) for w in range(1, 17)), (17, 32, 128), (33, 64, 64), (65, 128, 32))
+# width -> (form, lanes a row, values a lane in registers, rows a block),
+# every width 1..MAX_WIDTH: one lane a row in either form
+PAVA_PLAN = {w: ("thread", 1, w, 128) if rows == 0 else ("stack", 1, 0, rows)
+             for lo, hi, rows in _PAVA_FORMS for w in range(lo, hi + 1)}
 
 
 def _on_one_cuda_device(name, tensors):
@@ -83,24 +80,15 @@ def _check(name, v, widths, radius):
         raise ValueError(f"{name}: {Bk} blocks, the kernels take fewer than 2**31")
     if not (v.is_contiguous() and widths.is_contiguous() and radius.is_contiguous()):
         raise ValueError(f"{name}: tensors must be contiguous")
+    if v.numel() // w > MAX_ROWS:
+        raise ValueError(f"{name}: {v.numel() // w} rows in one bucket, the kernel takes "
+                         f"at most {MAX_ROWS}")
     return Bk, w
 
 
-def _launch(name, fn_name, v, widths, radius):
-    Bk, w = _check(name, v, widths, radius)
-    _on_one_cuda_device(name, (v, widths, radius))
-    fn = _fn(fn_name)
-    out = torch.empty_like(v)
-    rows = v.numel() // w  # leading scenario axes fold into the row axis
-    with torch.cuda.device(v.device):
-        err = fn(v.data_ptr(), widths.data_ptr(), radius.data_ptr(), out.data_ptr(),
-                 rows, w, Bk, torch.cuda.current_stream().cuda_stream)
-    cudalib.launched(name, err)
-    return out
-
-
-def _buckets_fn():
-    fn = cudalib.load().bsls_proj_simplex_buckets
+def _entry(fn_name):
+    """The C entry point of a grouped kernel, its argument types declared."""
+    fn = getattr(cudalib.load(), fn_name)
     if fn.argtypes is None:
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         fn.restype = ctypes.c_int
@@ -110,32 +98,33 @@ def _buckets_fn():
     return fn
 
 
-def proj_simplex_buckets(xs, sizes, radii):
-    """Project every bucket of a projection in one launch: each row of
-    ``xs[i]`` (..., Bk_i, w_i) onto {x >= 0, sum x = radii[i][b]} over its
-    first ``sizes[i][b]`` slots, 0 elsewhere.  Returns a tuple of fresh
-    tensors, one a bucket.  CUDA float32 tensors on one device only; up to
-    ``PROJ_MAX_BUCKETS`` buckets a launch."""
-    name = "proj_simplex_rows"
+def _buckets_fn():
+    return _entry("bsls_proj_simplex_buckets")
+
+
+def _pava_fn():
+    return _entry("bsls_pava_buckets")
+
+
+def _grouped(name, entry, xs, sizes, radii):
+    """Every bucket ``(xs[i], sizes[i], radii[i])`` through one launch of the
+    entry point ``entry()`` (a launch per ``MAX_BUCKETS`` buckets); a fresh
+    output tensor a bucket."""
     if not len(xs) == len(sizes) == len(radii):
         raise ValueError(f"{name}: {len(xs)} buckets, {len(sizes)} sizes, {len(radii)} radii")
     if not xs:
         return ()
     shapes = [_check(name, x, n, r) for x, n, r in zip(xs, sizes, radii)]
-    for x, (Bk, w) in zip(xs, shapes):
-        if x.numel() // w > PROJ_MAX_ROWS:
-            raise ValueError(f"{name}: {x.numel() // w} rows in one bucket, the kernel takes "
-                             f"at most {PROJ_MAX_ROWS}")
     _on_one_cuda_device(name, (*xs, *sizes, *radii))
     outs = tuple(torch.empty_like(x) for x in xs)
     live = [i for i, x in enumerate(xs) if x.numel()]  # an empty bucket needs no block
-    for at in range(0, len(live), PROJ_MAX_BUCKETS):
-        idx = live[at:at + PROJ_MAX_BUCKETS]
+    for at in range(0, len(live), MAX_BUCKETS):
+        idx = live[at:at + MAX_BUCKETS]
         nb = len(idx)
         ptrs = lambda ts: (ctypes.c_void_p * nb)(*(ts[i].data_ptr() for i in idx))
         ints = lambda typ, vals: (typ * nb)(*(vals[i] for i in idx))
         scen = {i: xs[i].numel() // (shapes[i][0] * shapes[i][1]) for i in idx}
-        fn = _buckets_fn()
+        fn = entry()
         with torch.cuda.device(xs[idx[0]].device):
             err = fn(ptrs(xs), ptrs(outs), ptrs(sizes), ptrs(radii),
                      ints(ctypes.c_longlong, scen), ints(ctypes.c_int, [s[0] for s in shapes]),
@@ -145,6 +134,15 @@ def proj_simplex_buckets(xs, sizes, radii):
     return outs
 
 
+def proj_simplex_buckets(xs, sizes, radii):
+    """Project every bucket of a projection in one launch: each row of
+    ``xs[i]`` (..., Bk_i, w_i) onto {x >= 0, sum x = radii[i][b]} over its
+    first ``sizes[i][b]`` slots, 0 elsewhere.  Returns a tuple of fresh
+    tensors, one a bucket.  CUDA float32 tensors on one device only; up to
+    ``MAX_BUCKETS`` buckets a launch."""
+    return _grouped("proj_simplex_rows", _buckets_fn, xs, sizes, radii)
+
+
 def proj_simplex_rows(v: torch.Tensor, widths: torch.Tensor, radius: torch.Tensor) -> torch.Tensor:
     """Project each row of ``v`` (..., Bk, w) onto {x >= 0, sum x = radius[b]}
     over its first ``widths[b]`` slots; 0 elsewhere.  CUDA float32 only: the
@@ -152,8 +150,17 @@ def proj_simplex_rows(v: torch.Tensor, widths: torch.Tensor, radius: torch.Tenso
     return proj_simplex_buckets((v,), (widths,), (radius,))[0]
 
 
+def pava_buckets(ys, widths, radii):
+    """The [0, radii[i][b]]-bounded nondecreasing isotonic fit of the first
+    ``widths[i][b]`` slots of each row of ``ys[i]`` (..., Bk_i, w_i), 0
+    elsewhere, every bucket in one launch.  Returns a tuple of fresh tensors,
+    one a bucket.  CUDA float32 tensors on one device only; up to
+    ``MAX_BUCKETS`` buckets a launch."""
+    return _grouped("pava_rows", _pava_fn, ys, widths, radii)
+
+
 def pava_rows(y: torch.Tensor, widths: torch.Tensor, radius: torch.Tensor) -> torch.Tensor:
     """[0, radius[b]]-bounded nondecreasing isotonic fit of the first
     ``widths[b]`` slots of each row of ``y`` (..., Bk, w); 0 elsewhere.  CUDA
-    float32 only."""
-    return _launch("pava_rows", "bsls_pava_rows", y, widths, radius)
+    float32 only: the one-bucket case of ``pava_buckets``."""
+    return pava_buckets((y,), (widths,), (radius,))[0]

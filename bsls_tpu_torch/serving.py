@@ -75,6 +75,7 @@ class Endpoint:
         self.dtype = dtype
         self.warm_start = warm_start
         self.mesh = mesh
+        L.check_dtype(dtype, device if mesh is None else mesh.device)
         if mesh is not None:
             dev = mesh.device
         else:

@@ -201,6 +201,7 @@ def solve_equality_constrained(
 
     if problem.C is None:
         raise ValueError("problem has no equality constraints")
+    L.check_dtype(dtype, device if mesh is None else mesh.device)
     if mesh is None and shard_rows:
         raise ValueError("shard_rows requires a mesh")
     if mesh is not None:

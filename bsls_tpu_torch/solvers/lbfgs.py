@@ -221,9 +221,7 @@ def step(dp, st: LBFGSState, L_est, opts: SolveOptions) -> LBFGSState:
     t0 = 1.0 / float(L_est)
     if zspace:
         def arc(yp):
-            zhat = tuple(
-                isotonic.pava_bounded(y, torch.clamp(bk.sizes - 1, min=0), bk.radius)
-                for y, bk in zip(yp, dp.buckets))
+            zhat = isotonic.pava_blocks(yp, dp.buckets)
             return _dz_forward(tuple(zh - z for zh, z in zip(zhat, zp)), dp.buckets)
 
         d_qn = arc(tuple(z - dq for z, dq in zip(zp, qp)))

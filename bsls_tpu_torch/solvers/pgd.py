@@ -112,12 +112,7 @@ def step(dp, st: PGDState, L_est, opts: SolveOptions) -> PGDState:
     t0b = t0[:, None, None]
 
     if zspace:
-        zhat = tuple(
-            isotonic.pava_bounded(
-                z - t0b * gz, torch.clamp(bk.sizes - 1, min=0), bk.radius
-            )
-            for z, gz, bk in zip(zp, gzp, dp.buckets)
-        )
+        zhat = isotonic.pava_blocks(tuple(z - t0b * gz for z, gz in zip(zp, gzp)), dp.buckets)
         dzp = tuple(zh - z for zh, z in zip(zhat, zp))
         dxp = _dz_forward(dzp, dp.buckets)
     else:

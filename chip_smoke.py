@@ -66,16 +66,19 @@ Every phase prints one JSON line; a failed phase raises and the script exits
 non-zero without the result line.  The last line is ``{"ok": true, "device":
 {...}}``, the line before it lists every kernel with its launches on its path,
 its error, its time, the plain version's time, its bound and, where one
-PyTorch call computes the same function, that call's time.  ``pava_rows`` is
-also held and timed on the inputs that a short pava solve of medium x 128
-hands it (captured before the kernels phase), with the share of rows that
-pool, and on rows with a NaN.  The projection is held at every width 1-40,
-48, 64, 100, 127 and 128 (ties and rows within 100x the radius among them),
-one bucket a launch and eight to a launch, and timed at every path's buckets
-one launch a bucket and all in one launch, as its path launches it; every
-path's projections take one launch each.  With ``--ptxas`` the build phase
-fails unless the PAVA kernels of widths 4 and 8 and the projection's kernel
-(all its forms) keep everything in registers (no stack frame, no spills).
+PyTorch call computes the same function, that call's time.  The projection
+is held at every width 1-40, 48, 64, 100, 127 and 128, PAVA at every width
+1-128 (ties and rows within 100x the radius among them; PAVA also rows with
+a NaN), one bucket a launch and eight to a launch, and both are timed at
+every path's buckets one launch a bucket and all in one launch, as their
+paths launch them; every path's projections and z-space fits take one
+launch each.  ``pava_rows`` is also held and timed on the inputs that a
+short pava solve of medium x 128 hands it (captured before the kernels
+phase), with the share of rows that pool, and timed on (128, 1003, w) rows
+at a sweep of widths.  A float64 solve with the card as its device must be
+refused before anything is uploaded.  With ``--ptxas`` the build phase fails
+unless both row kernels (every form, inlined) keep everything out of local
+memory (no stack frame, no spills).
 """
 import argparse
 import contextlib
@@ -141,39 +144,46 @@ def bound(bytes_, ops):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-# Projections the solvers asked for on the card since the last reset_counts():
-# each takes one launch of proj_simplex_rows, whatever its number of buckets.
-PROJECTIONS = [0]
+# Calls of the row kernels' grouped entries the solvers made on the card since
+# the last reset_counts(): each takes one launch, whatever its number of
+# buckets (a projection one of proj_simplex_rows, a z-space fit one of
+# pava_rows).
+CALLS = {"proj_simplex_rows": 0, "pava_rows": 0}
 
 
-def count_projections():
-    """Wrap ``ops.projection.proj_blocks`` where the solvers look it up (the
-    module, and ``solvers.base``, which imported the name), so that a path's
-    projections on CUDA tensors are counted beside its launches."""
+def count_calls():
+    """Wrap ``ops.projection.proj_blocks`` and ``ops.isotonic.pava_blocks``
+    where the solvers look them up (the modules, and ``solvers.base``, which
+    imported ``proj_blocks``), so that a path's calls on CUDA tensors are
+    counted beside its launches."""
     from bsls_tpu_torch.ops import projection
     from bsls_tpu_torch.solvers import base
 
-    plain = projection.proj_blocks
+    def counted(name, plain):
+        def call(xp, buckets):
+            CALLS[name] += any(x.is_cuda for x in xp)
+            return plain(xp, buckets)
+        return call
 
-    def counted(xp, buckets):
-        PROJECTIONS[0] += any(x.is_cuda for x in xp)
-        return plain(xp, buckets)
-
-    projection.proj_blocks = base.proj_blocks = counted
+    projection.proj_blocks = base.proj_blocks = counted("proj_simplex_rows",
+                                                        projection.proj_blocks)
+    isotonic.pava_blocks = counted("pava_rows", isotonic.pava_blocks)
 
 
 def reset_counts():
     bt.reset_launch_counts()
-    PROJECTIONS[0] = 0
+    for name in CALLS:
+        CALLS[name] = 0
 
 
 def read_counts():
-    """The launch counts since ``reset_counts()``; fails unless every
-    projection took one launch of proj_simplex_rows."""
+    """The launch counts since ``reset_counts()``; fails unless every call
+    of a row kernel's grouped entry took one launch."""
     counts = bt.launch_counts()
-    check(counts["proj_simplex_rows"] == PROJECTIONS[0],
-          f"{sys._getframe(1).f_code.co_name}: {counts['proj_simplex_rows']} launches of "
-          f"proj_simplex_rows for {PROJECTIONS[0]} projections (one launch a projection)")
+    for name, calls in CALLS.items():
+        check(counts[name] == calls,
+              f"{sys._getframe(1).f_code.co_name}: {counts[name]} launches of {name} for "
+              f"{calls} calls (one launch a call)")
     return counts
 
 
@@ -220,23 +230,18 @@ def phase_build(ptxas):
          native_secs=round(t_native, 2), cuda_library=lib.split("bsls_tpu_torch/")[-1],
          cuda_secs=round(t_cuda, 2))
     if ptxas:
-        # the widths of the solve path keep their row and its fit in
-        # registers: no stack frame, no spills
-        res = kernel_resources(log.getvalue(), r"pava_rows_fixedILi(\d+)E")
-        for w in ("4", "8"):
-            r = res.get(w)
-            check(r is not None, f"ptxas: no report on pava_rows_fixed<{w}>")
-            check(r["stack_frame"] == r["spill_stores"] == r["spill_loads"] == 0,
-                  f"ptxas: pava_rows_fixed<{w}> uses local memory: {r}")
-        # every form of the projection is inlined into its kernel, one
-        # instantiation for 1, 2, 4 and 8 descriptors
-        proj = kernel_resources(log.getvalue(), r"proj_buckets_kernelILi(\d+)E")
-        check(sorted(proj, key=int) == ["1", "2", "4", str(rowkernels.PROJ_MAX_BUCKETS)],
-              f"ptxas: reports on proj_buckets_kernel<{sorted(proj)}>")
-        for nb, r in proj.items():
-            check(r["stack_frame"] == r["spill_stores"] == r["spill_loads"] == 0,
-                  f"ptxas: a form of proj_buckets_kernel<{nb}> uses local memory: {r}")
-        emit("ptxas", pava_rows_fixed=res, proj_buckets_kernel=proj)
+        # every form of either row kernel is inlined into its kernel, one
+        # instantiation for 1, 2, 4 and 8 descriptors: no stack frame, no
+        # spills in any
+        res = {}
+        for kernel in ("proj_buckets_kernel", "pava_buckets_kernel"):
+            res[kernel] = kernel_resources(log.getvalue(), kernel + r"ILi(\d+)E")
+            check(sorted(res[kernel], key=int) == ["1", "2", "4", str(rowkernels.MAX_BUCKETS)],
+                  f"ptxas: reports on {kernel}<{sorted(res[kernel])}>")
+            for nb, r in res[kernel].items():
+                check(r["stack_frame"] == r["spill_stores"] == r["spill_loads"] == 0,
+                      f"ptxas: a form of {kernel}<{nb}> uses local memory: {r}")
+        emit("ptxas", **res)
 
 
 # ------------------------------------------------------------------ timing
@@ -341,44 +346,35 @@ def compare_rows(name, spec, v, widths, radius, got=None, **structure):
 
 
 PROJ_CHECK_WIDTHS = tuple(range(1, 41)) + (48, 64, 100, 127, 128)
+PAVA_CHECK_WIDTHS = tuple(range(1, rowkernels.MAX_WIDTH + 1))
 # Row sums of the rows within 100x the radius: tau, up to 100 r, carries half
 # an ulp (up to 6e-6 r) into every slot of the support, so there the sums are
 # held at 1e-4 relative (1e-5 elsewhere; the plain version's are 3e-5 off).
 LARGE_ROWSUM_REL = 1e-4
 
 
-def check_proj_rows(name, spec, ctx):
-    """The projection at every width 1-40, 48, 64, 100, 127 and 128: ragged
-    widths with dummy rows, (Bk, w) rows and a folded scenario axis, on
-    random rows, rows with ties and rows within 100x the radius; one bucket
-    a launch, then the same cases eight buckets to a launch."""
+def check_every_width(name, spec, ctx):
+    """A row kernel at each of its check widths (the projection 1-40, 48, 64,
+    100, 127 and 128; PAVA every width 1-128): ragged widths with dummy rows,
+    (Bk, w) rows and a folded scenario axis, on random rows, rows with ties
+    and rows within 100x the radius; one bucket a launch, then the same cases
+    eight buckets to a launch; PAVA also on rows with a NaN."""
     errs, shapes, groups = [], [], {}
     for k, kind in enumerate(("random", "ties", "large")):
-        kw = {"rowsum_rel": LARGE_ROWSUM_REL} if kind == "large" else {}
-        for w in PROJ_CHECK_WIDTHS:
+        kw = spec["structure_kw"].get(kind, {})
+        for w in spec["check_widths"]:
             for lead in ((), (3,)):
                 case = random_rows(lead, 1003, w, seed=100 * w + len(lead) + 7919 * k, kind=kind)
                 errs.append(compare_rows(name, spec, *case, **kw))
                 shapes.append([kind, *case[0].shape])
                 groups.setdefault((kind, lead), []).append(case)
     for (kind, _), cases in groups.items():
-        kw = {"rowsum_rel": LARGE_ROWSUM_REL} if kind == "large" else {}
-        for at in range(0, len(cases), rowkernels.PROJ_MAX_BUCKETS):
-            part = cases[at:at + rowkernels.PROJ_MAX_BUCKETS]
-            outs = rowkernels.proj_simplex_buckets(*zip(*part))
+        kw = spec["structure_kw"].get(kind, {})
+        for at in range(0, len(cases), rowkernels.MAX_BUCKETS):
+            part = cases[at:at + rowkernels.MAX_BUCKETS]
+            outs = spec["buckets_fn"](*zip(*part))
             for case, got in zip(part, outs):
                 errs.append(compare_rows(name, spec, *case, got=got, **kw))
-    return max(errs), shapes, ROW_ERR_LIMIT
-
-
-def check_rows(name, spec, ctx):
-    """Ragged random cases, then the bucket shapes of medium x 128."""
-    errs, shapes = [], []
-    for w in (1, 2, 3, 4, 8, 16, 32, 64):
-        for lead in ((), (3,)):  # (Bk, w) rows and a folded scenario axis
-            v, widths, radius = random_rows(lead, 1003, w, seed=100 * w + len(lead))
-            errs.append(compare_rows(name, spec, v, widths, radius))
-            shapes.append(list(v.shape))
     if spec.get("nan_widths"):
         errs.append(check_nan_rows(name, spec))
     return max(errs), shapes, ROW_ERR_LIMIT
@@ -387,8 +383,8 @@ def check_rows(name, spec, ctx):
 def check_nan_rows(name, spec):
     """Rows with a NaN among their first widths[b] slots, and rows with one in
     a padding slot, against the plain version: the same slots NaN, the rest
-    within the row limit."""
-    errs = []
+    within the row limit; one bucket a launch, then eight to a launch."""
+    cases = []
     for w in spec["nan_widths"]:
         v, widths, radius = random_rows((3,), 1003, w, seed=900 + w)
         rng = np.random.default_rng(w)
@@ -398,9 +394,14 @@ def check_nan_rows(name, spec):
                 y[b % 3, b, rng.integers(0, n[b])] = np.nan
             if n[b] < w:  # a NaN in a padding slot of every scenario
                 y[:, b, rng.integers(n[b], w)] = np.nan
-        v = torch.from_numpy(y).to(DEV)
-        got = spec["fn"](v, widths, radius)
-        torch.cuda.synchronize()
+        cases.append((torch.from_numpy(y).to(DEV), widths, radius))
+    outs = [spec["fn"](*case) for case in cases]
+    for at in range(0, len(cases), rowkernels.MAX_BUCKETS):
+        outs += spec["buckets_fn"](*zip(*cases[at:at + rowkernels.MAX_BUCKETS]))
+    torch.cuda.synchronize()
+    errs = []
+    for (v, widths, radius), got in zip(cases + cases, outs):
+        w = v.shape[-1]
         want = spec["plain"](v, widths, radius)
         nan = torch.isnan(want)
         check(bool(nan.any()) and torch.equal(torch.isnan(got), nan),
@@ -420,20 +421,21 @@ def inputs_in_turn(one_bytes):
 
 def capture_pava_inputs(dp, iters=40):
     """The tensors that a short ``pava`` solve of ``dp`` hands
-    ``isotonic.pava_bounded``, by bucket shape, in the order of the iterations.
+    ``isotonic.pava_blocks``, by bucket shape, in the order of the iterations.
     The function is wrapped here for the capture only."""
     seen = {}
-    plain_fn = isotonic.pava_bounded
+    plain_fn = isotonic.pava_blocks
 
-    def spy(y, widths, radius):
-        seen.setdefault(tuple(y.shape), []).append(y.clone())
-        return plain_fn(y, widths, radius)
+    def spy(yp, buckets):
+        for y in yp:
+            seen.setdefault(tuple(y.shape), []).append(y.clone())
+        return plain_fn(yp, buckets)
 
-    isotonic.pava_bounded = spy
+    isotonic.pava_blocks = spy
     try:
         bt.solve(dp, method="pgd", line_search="pava", tol=0.0, max_iter=iters, chunk=iters)
     finally:
-        isotonic.pava_bounded = plain_fn
+        isotonic.pava_blocks = plain_fn
     # one more per bucket: solve's throwaway warm-up step before its clock,
     # from the same state as the first iteration
     check(len(seen) == len(dp.buckets) and all(len(v) == iters + 1 for v in seen.values()),
@@ -467,11 +469,11 @@ def measure_rows(name, spec, ctx):
         vs = [torch.randn(shape, generator=gen, device=DEV) * 2 * bk.radius[:, None]
               for _ in range(n_in)]
         errs.append(compare_rows(name, spec, vs[0], widths, bk.radius))
-        if "grouped" in spec:
-            inputs.append((vs, widths, bk.radius))
+        inputs.append((vs, widths, bk.radius))
         launch = lambda j: spec["fn"](vs[j % n_in], widths, bk.radius)
         k_ms, c_ms = device_ms(launch), call_ms(launch)
-        p_ms = call_ms(lambda j: spec["plain"](vs[j % n_in], widths, bk.radius), reps=4)
+        plain = spec.get("timed_plain", spec["plain"])
+        p_ms = call_ms(lambda j: plain(vs[j % n_in], widths, bk.radius), reps=4)
         rows, w = vs[0].numel() // bk.width, bk.width
         b_bytes = 2 * 4 * rows * w + 8 * bk.mask.shape[0]
         b_ops = rows * spec["ops_per_row"](w)
@@ -496,17 +498,40 @@ def measure_rows(name, spec, ctx):
         per_bucket.append(entry)
         ms, plain_ms, bytes_, ops = ms + k_ms, plain_ms + p_ms, bytes_ + b_bytes, ops + b_ops
     b_ms, by = bound(bytes_, ops)
-    out = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-               library_ms=None, per_bucket=per_bucket)
-    if "grouped" in spec:
-        # the main path's launch: every bucket at once; ``ms`` is its time
-        g = spec["grouped"](inputs, errs)
-        out.update(ms=g["ms"], grouped=g, per_bucket_launches_ms=ms,
-                   share_of_bound=b_ms / g["ms"],
-                   plan_by_width={str(bk.width): spec["plan"](bk.width) for bk in dp.buckets})
+    # the main path's launch: every bucket at once; ``ms`` is its time
+    g = grouped_rows(name, inputs, errs)
+    out = dict(max_abs_err=max(errs), ms=g["ms"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+               library_ms=None, grouped=g, per_bucket_launches_ms=ms,
+               share_of_bound=b_ms / g["ms"], per_bucket=per_bucket,
+               plan_by_width={str(bk.width): spec["plan"](bk.width) for bk in dp.buckets})
     if solve_inputs is not None:
-        out.update(solve_inputs_ms=sum(e["solve_inputs_ms"] for e in per_bucket),
-                   form_by_width={str(w): f for w, f in rowkernels.PAVA_FORMS.items()})
+        out.update(solve_inputs_ms=sum(e["solve_inputs_ms"] for e in per_bucket))
+    if spec.get("sweep_widths"):
+        out.update(sweep=width_sweep(name, spec))
+        out["max_abs_err"] = max(out["max_abs_err"], *(e["max_abs_err"]
+                                                      for e in out["sweep"].values()))
+    return out
+
+
+def width_sweep(name, spec, Bk=1003):
+    """One launch at (128, Bk, w) for each of the kernel's sweep widths
+    (ragged widths with dummy rows, inputs cycled past the L2), beside the
+    bytes bound; each held first against the plain version on its first
+    four scenarios."""
+    out = {}
+    for w in spec["sweep_widths"]:
+        v, widths, radius = random_rows((SCENARIOS,), Bk, w, seed=500 + w)
+        err = compare_rows(name, spec, v[:4].contiguous(), widths, radius)
+        n_in = inputs_in_turn(4 * v.numel())
+        gen = torch.Generator(device=DEV).manual_seed(w)
+        vs = [v] + [torch.randn(v.shape, generator=gen, device=DEV) * 2 * radius[:, None]
+                    for _ in range(n_in - 1)]
+        ms = device_ms(lambda j: spec["fn"](vs[j % n_in], widths, radius))
+        b_ms, by = bound(2 * 4 * v.numel() + 8 * Bk, SCENARIOS * Bk * spec["ops_per_row"](w))
+        out[str(w)] = {"shape": list(v.shape), "form": spec["plan"](w), "ms": ms,
+                       "bound_ms": b_ms, "bound_by": by, "share_of_bound": b_ms / ms,
+                       "max_abs_err": err}
+        del vs
     return out
 
 
@@ -526,19 +551,19 @@ def sort_comparators(K):
     return count
 
 
-def grouped_proj(inputs, errs):
-    """The projection of every bucket in one launch, as ``proj_blocks``
-    launches it: ``inputs`` holds per bucket (the inputs it cycles through,
-    widths, radius).  Held against the plain version (errors appended to
-    ``errs``), then timed (device time of one launch, each bucket cycling
-    through its inputs) beside the summed bound of the buckets."""
-    spec = KERNELS["proj_simplex_rows"]
+def grouped_rows(name, inputs, errs):
+    """Every bucket of a call in one launch, as ``proj_blocks`` and
+    ``pava_blocks`` launch them: ``inputs`` holds per bucket (the inputs it
+    cycles through, widths, radius).  Held against the plain version (errors
+    appended to ``errs``), then timed (device time of one launch, each bucket
+    cycling through its inputs) beside the summed bound of the buckets."""
+    spec = KERNELS[name]
     sizes = tuple(w for _, w, _ in inputs)
     radii = tuple(r for _, _, r in inputs)
-    outs = rowkernels.proj_simplex_buckets(tuple(vs[0] for vs, _, _ in inputs), sizes, radii)
+    outs = spec["buckets_fn"](tuple(vs[0] for vs, _, _ in inputs), sizes, radii)
     for (vs, widths, radius), got in zip(inputs, outs):
-        errs.append(compare_rows("proj_simplex_rows", spec, vs[0], widths, radius, got=got))
-    launch = lambda j: rowkernels.proj_simplex_buckets(
+        errs.append(compare_rows(name, spec, vs[0], widths, radius, got=got))
+    launch = lambda j: spec["buckets_fn"](
         tuple(vs[j % len(vs)] for vs, _, _ in inputs), sizes, radii)
     g_ms, c_ms = device_ms(launch), call_ms(launch)
     bytes_ = sum(2 * vs[0].numel() * 4 + 8 * w.numel() for vs, w, _ in inputs)
@@ -857,13 +882,14 @@ def measure_chunk(name, spec, ctx, steps=100):
 # its timing at the shapes of its path with its bound (measure).
 KERNELS = {
     "proj_simplex_rows": dict(
-        fn=rowkernels.proj_simplex_rows,
+        fn=rowkernels.proj_simplex_rows, buckets_fn=rowkernels.proj_simplex_buckets,
         plain=lambda v, widths, radius: proj_simplex_padded(v, _mask(v, widths), radius),
         source="bsls_tpu_torch/csrc/proj_simplex_rows.cu",
         # the lane-major kernel; its row-major twin is projection_kernel.py:187
         replaces="bsls_tpu/ops/pallas/projection_kernel.py:132",
-        check=check_proj_rows, measure=measure_rows, structure=_proj_structure,
-        widths_of=lambda bk: bk.sizes, grouped=grouped_proj,
+        check=check_every_width, measure=measure_rows, structure=_proj_structure,
+        check_widths=PROJ_CHECK_WIDTHS, structure_kw={"large": {"rowsum_rel": LARGE_ROWSUM_REL}},
+        widths_of=lambda bk: bk.sizes,
         plan=lambda w: list(rowkernels.PROJ_PLAN[w]),
         # per row, thread form: the network's comparators of 2 operations,
         # ~10 more per slot (scan, Newton step, output); group form: w^2
@@ -872,22 +898,32 @@ KERNELS = {
                                else 3 * w * w) + 10 * w,
     ),
     "pava_rows": dict(
-        fn=rowkernels.pava_rows,
-        plain=lambda v, widths, radius: pava_padded(v, _mask(v, widths), 0.0, radius,
-                                                    chunk=1 << 17),
+        fn=rowkernels.pava_rows, buckets_fn=rowkernels.pava_buckets,
+        # in float64: the float32 plain version's prefix-sum differences are
+        # up to 4e-5 x the radius off on rows within 100x the radius, more
+        # than the kernel's running sums
+        plain=lambda v, widths, radius: pava_padded(
+            v.double(), _mask(v, widths).double(), 0.0, radius.double(), chunk=1 << 16).float(),
+        # what the port's CPU path runs, timed as the plain version
+        timed_plain=lambda v, widths, radius: pava_padded(v, _mask(v, widths), 0.0, radius,
+                                                          chunk=1 << 17),
         source="bsls_tpu_torch/csrc/pava_rows.cu",
         # the lane-major kernel; its row-major twin is pava_kernel.py:181
         replaces="bsls_tpu/ops/pallas/pava_kernel.py:132",
-        check=check_rows, measure=measure_rows, structure=_pava_structure,
-        widths_of=lambda bk: torch.clamp(bk.sizes - 1, min=0),
-        plan=lambda w: rowkernels.PAVA_FORMS.get(w, "generic"),
-        # the fixed-width kernels carry a NaN over a row's fitted slots
-        nan_widths=(4, 8, 32),
-        # per row, minimax form: w(w+1)/2 segments of an add, a multiply, a max
-        # and a min (less the w adds and w maxes of the first segments), 4 more
-        # per slot; stack form: at most 2w pushes/pops of ~5, ~4 more per slot
-        ops_per_row=lambda w: (2 * w * w + 4 * w if rowkernels.PAVA_FORMS.get(w) == "minimax"
-                               else 14 * w),
+        check=check_every_width, measure=measure_rows, structure=_pava_structure,
+        check_widths=PAVA_CHECK_WIDTHS, structure_kw={},
+        widths_of=lambda bk: bk.zwidths,
+        plan=lambda w: list(rowkernels.PAVA_PLAN[w]),
+        # every form carries a NaN over a row's fitted slots: thread forms
+        # (3, 4, 8, 12) and stack forms of each rows a block (24, 32, 48,
+        # 100, 128)
+        nan_widths=(3, 4, 8, 12, 24, 32, 48, 100, 128),
+        sweep_widths=(3, 5, 12, 17, 24, 33, 48, 64, 100, 128),
+        # the same work at every width and in every form: the linear
+        # pool-adjacent-violators' ~14 operations a slot (pushes, pops,
+        # expansion, clip), so the bound is the bytes bound and shares compare
+        # across forms
+        ops_per_row=lambda w: 14 * w,
     ),
     "band_zmv": dict(
         fn=pagekernels.band_zmv, plain=pagekernels.band_zmv_plain,
@@ -947,7 +983,7 @@ def phase_solve(phase, prob, dp, line_search, max_iter, kernels, method="pgd", s
                 lipschitz=None, chunk=100):
     """One path: ``solve`` on a prepared instance.  The launch counts are set
     to 0 just before and read just after; each kernel of ``kernels`` must
-    have been launched at least once per iteration (PAVA: and bucket).  Every
+    have been launched at least once per iteration.  Every
     family checked here descends by construction (apgd by its safeguard, the
     others by an exact step clipped to [0, 1]), so the objective must not
     rise between chunk ends."""
@@ -984,11 +1020,10 @@ def phase_solve(phase, prob, dp, line_search, max_iter, kernels, method="pgd", s
     check(abs(f64 - f32) <= 1e-4 * max(1.0, abs(f64)),
           f"{phase}: device objective {f32} vs float64 host objective {f64}")
     for kernel in kernels:
-        # the projection takes one launch for all buckets, PAVA one a bucket
-        per_iter = 1 if kernel == "proj_simplex_rows" else n_buckets
-        check(counts[kernel] >= max_iter * per_iter,
-              f"{phase}: {kernel} launched {counts[kernel]} times, expected >= "
-              f"{max_iter * per_iter}")
+        # the row kernels take one launch a call for all buckets (read_counts
+        # holds it): at least one an iteration
+        check(counts[kernel] >= max_iter,
+              f"{phase}: {kernel} launched {counts[kernel]} times, expected >= {max_iter}")
     emit(phase, method=method, space=space, line_search=line_search, chunk=chunk,
          iterations=res.iterations, scenarios=S,
          aggregate_iters_per_sec=S * res.steady_iters_per_sec(),
@@ -1014,6 +1049,31 @@ def phase_cross_check(base):
     check(float(np.abs(on_card.x - on_cpu.x).max()) <= 1e-3, "cross_check: x differs")
     emit("cross_check", scenarios=4, iterations=200, max_rel_trace_diff=float(rel.max()),
          max_abs_x_diff=float(np.abs(on_card.x - on_cpu.x).max()))
+
+
+def phase_float64_refused(ctx, base):
+    """A float64 solve with the card as its device (an unconstrained one, an
+    equality-constrained one, an endpoint) raises ValueError, naming the
+    float32-only kernels, before anything is uploaded."""
+    cases = {"solve": lambda: bt.solve(bt.synthetic.with_scenarios(base, 4, seed=1),
+                                       dtype=torch.float64, device=DEV, max_iter=10),
+             "solve_eq": lambda: bt.solve(ctx["eq_prob4"], dtype=torch.float64, device=DEV,
+                                          max_iter=10),
+             "endpoint": lambda: bt.Endpoint(base, dtype=torch.float64, device=DEV)}
+    messages = {}
+    for case, run in cases.items():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(DEV)
+        try:
+            run()
+        except ValueError as e:
+            messages[case] = str(e)
+        check(case in messages, f"float64_refused: {case} in float64 on the card was not refused")
+        check(torch.cuda.memory_allocated(DEV) == before,
+              f"float64_refused: {case} uploaded before it was refused")
+        check(all(k in messages[case] for k in KERNELS),
+              f"float64_refused: {case}'s message names not every kernel: {messages[case]}")
+    emit("float64_refused", messages=messages)
 
 
 def prepare_banded(base, scenarios):
@@ -1156,7 +1216,8 @@ def _state_to(st, device):
             return _state_to(v, device)
         return v.to(device) if isinstance(v, torch.Tensor) else v
 
-    return type(st)(**{f.name: move(getattr(st, f.name)) for f in dataclasses.fields(st)})
+    return type(st)(**{f.name: move(getattr(st, f.name)) for f in dataclasses.fields(st)
+                       if f.init})
 
 
 def _states_at_chunk_ends(dp, method, kw):
@@ -1490,8 +1551,8 @@ def check_rows_at(name, dp, scenarios, seed):
     widths and radii of its prepared problem, ``scenarios`` leading. Each
     bucket is also timed (device time of one launch, inputs cycled past the
     L2) beside its bytes bound, under the form its kernel's plan gives its
-    width; the projection also in one launch for all buckets, as its path
-    launches it (``grouped``, None for PAVA)."""
+    width; then all buckets in one launch, as its path launches them
+    (``grouped``)."""
     spec, errs, per_bucket, inputs = KERNELS[name], [], [], []
     for i, bk in enumerate(dp.buckets):
         Bk, w = bk.mask.shape
@@ -1507,10 +1568,9 @@ def check_rows_at(name, dp, scenarios, seed):
         per_bucket.append({"shape": [scenarios, Bk, w], "form": spec["plan"](w),
                            "ms": k_ms, "bound_ms": b_ms, "bound_by": by,
                            "share_of_bound": b_ms / k_ms})
-        if "grouped" in spec:
-            inputs.append((vs, widths, bk.radius))
+        inputs.append((vs, widths, bk.radius))
         del vs
-    grouped = spec["grouped"](inputs, errs) if "grouped" in spec else None
+    grouped = grouped_rows(name, inputs, errs) if spec.get("buckets_fn") else None
     return max(errs), per_bucket, grouped
 
 
@@ -1653,13 +1713,16 @@ def phase_solve_eq_pava(ctx, max_iter=EQ_PAVA_ITERS, inner=EQ_PAVA_INNER):
     _check_simplices("solve_eq_pava", prob4, res.x)
     check(np.isfinite(res.eq_violation) and bool(np.isfinite(res.objective).all()),
           "solve_eq_pava: non-finite result")
-    n_buckets = len(dp.buckets)
-    check(counts["pava_rows"] >= res.iterations * n_buckets,
+    # one launch a step for the four buckets (read_counts holds one a call),
+    # and at most one more an outer: each inner solve's warm-up step
+    check(res.iterations <= counts["pava_rows"] <= res.iterations + len(rec.outer),
           f"solve_eq_pava: pava_rows launched {counts['pava_rows']} times in "
-          f"{res.iterations} inner iterations over {n_buckets} buckets")
-    err, rows, _ = check_rows_at("pava_rows", dp, 4, seed=620)
+          f"{res.iterations} inner iterations and {len(rec.outer)} outers")
+    # each bucket a launch (w = 12 alone among them) and the four in one
+    # launch, as the step makes it
+    err, rows, grouped = check_rows_at("pava_rows", dp, 4, seed=620)
     # the same buckets at S = 128, where a launch is no longer only its latency
-    err128, rows128, _ = check_rows_at("pava_rows", dp, EQ_SCENARIOS, seed=630)
+    err128, rows128, grouped128 = check_rows_at("pava_rows", dp, EQ_SCENARIOS, seed=630)
     ctx["eq_row_errs"]["pava_rows"] = max(err, err128)
     # the z-space step of the stacked operator under the profiler
     prof = profile_steps(dp, "pava", iters=20)
@@ -1678,7 +1741,8 @@ def phase_solve_eq_pava(ctx, max_iter=EQ_PAVA_ITERS, inner=EQ_PAVA_INNER):
          largest_device_items_ms_per_step=[[k["name"][:60], k["ms_per_iter"],
                                             k["launches_per_iter"]] for k in prof["kernels"][:8]],
          top_gathers=gathers,
-         rows_by_bucket=rows, rows_by_bucket_s128=rows128, rows_max_err=max(err, err128))
+         rows_by_bucket=rows, rows_grouped=grouped, rows_by_bucket_s128=rows128,
+         rows_grouped_s128=grouped128, rows_max_err=max(err, err128))
     return counts
 
 
@@ -2566,8 +2630,9 @@ def phase_mesh_eq_world1(ctx):
         check(viol <= max(1e-6, 3 * want["viol"]), f"mesh_eq_world1 {name}: violation {viol}")
         check(r["launches"]["proj_simplex_rows"] >= r["iterations"],
               f"mesh_eq_world1 {name}: {r['launches']['proj_simplex_rows']} projections")
-    check(counts4["pava_rows"] >= res4.iterations * len(dp4.buckets),
-          f"mesh_eq_world1 pava: {counts4['pava_rows']} pava_rows launches")
+    check(res4.iterations <= counts4["pava_rows"] <= res4.iterations + len(outer4),
+          f"mesh_eq_world1 pava: {counts4['pava_rows']} pava_rows launches in "
+          f"{res4.iterations} inner iterations and {len(outer4)} outers")
     check(res4.eq_violation <= max(1e-6, 3 * pava_want["viol"]),
           f"mesh_eq_world1 pava: violation {res4.eq_violation}")
     return launches, err
@@ -2834,7 +2899,7 @@ def main():
     ap.add_argument("--mesh-rank-child", nargs=2, default=None, metavar=("RANK", "DIR"),
                     help="a rank process of the mesh_ranks phase")
     args = ap.parse_args()
-    count_projections()
+    count_calls()
     if args.chunk0_child:
         chunk0_child()
         return
@@ -2885,6 +2950,7 @@ def main():
     launches = phase_solve("solve_pava", prob, dp, "pava", 200, ("pava_rows",))
     report["pava_rows"]["launches"] = launches["pava_rows"]
     phase_cross_check(base)
+    phase_float64_refused(ctx, base)
     launches = phase_solve_banded(ctx)
     report["band_zmv"]["launches"] = launches["band_zmv"]
     report["band_grmv"]["launches"] = launches["band_grmv"]

@@ -1,7 +1,7 @@
 """What can be held without a card of the redesigned kernels of the PyTorch
 port: the Python statements of the rules by which the C launchers pick a kernel
 or a form and size a launch (``pagekernels.grmv_path``, ``chunkkernel.chunk_plan``,
-``rowkernels.PAVA_FORMS``, ``rowkernels.PROJ_PLAN``) at the shapes
+``rowkernels.PAVA_PLAN``, ``rowkernels.PROJ_PLAN``) at the shapes
 ``chip_smoke.py`` runs on the card; the
 recurrence the fused chunk now follows (gradient carried from step to step)
 against the plain loop; and the plain loop against the reference's kernel on a
@@ -209,27 +209,49 @@ def test_constants_agree_with_the_cuda_sources():
     assert pages["kRingBarrierBytes"] == pagekernels._RING_BARRIER_BYTES
 
 
-def _pava_source():
-    with open(os.path.join(CSRC, "pava_rows.cu")) as fh:
+def _source(name):
+    with open(os.path.join(CSRC, name)) as fh:
         return fh.read()
+
+
+def _pava_source():
+    return _source("pava_rows.cu")
+
+
+def _code(src):
+    """A CUDA source without its comments."""
+    return "\n".join(line.split("//")[0] for line in src.splitlines())
 
 
 def test_pava_forms_agree_with_the_cuda_switch():
-    """``rowkernels.PAVA_FORMS`` states the widths the switch of
-    ``bsls_pava_rows`` sends to the fixed-width kernel, and that kernel's fit
-    is the minimax form, the only one it has."""
+    """``rowkernels.PAVA_PLAN`` states the table BSLS_PAVA_FORMS that both
+    the kernel's switch and the launcher's choice of form expand: the thread
+    form (the minimax fit in registers) and the stack form (pool adjacent
+    violators in shared memory) with its rows a block; one C entry point for
+    all buckets of a call, instantiated for 1, 2, 4 and kMaxBuckets
+    descriptors."""
     src = _pava_source()
-    launcher = src[src.index('extern "C" int bsls_pava_rows('):]
-    cases = re.findall(r"BSLS_CASE\((\d+)\)\n", launcher)
-    assert sorted(int(w) for w in cases) == sorted(rowkernels.PAVA_FORMS)
-    assert set(rowkernels.PAVA_FORMS.values()) == {"minimax"}
-    kernel = re.search(r"pava_rows_fixed\(.*?\n\}", src, re.S).group(0)
-    assert re.findall(r"fit_\w+", kernel) == ["fit_minimax"]
+    table = src[src.index("#define BSLS_PAVA_FORMS(X)"):src.index("struct PavaBucket")]
+    forms = tuple(tuple(int(v) for v in m) for m in re.findall(r"X\((\d+), (\d+), (\d+)\)", table))
+    assert forms == rowkernels._PAVA_FORMS
+    plan = {w: ("thread", 1, w, 128) if rows == 0 else ("stack", 1, 0, rows)
+            for lo, hi, rows in forms for w in range(lo, hi + 1)}
+    assert plan == rowkernels.PAVA_PLAN
+    kernel = re.search(r"pava_buckets_kernel\(const __grid_constant__ PavaLaunch<NB> L\).*?\n\}",
+                       src, re.S).group(0)
+    assert "switch (bk.form)" in kernel and "BSLS_PAVA_FORMS(BSLS_FORM_CASE)" in kernel
+    assert "BSLS_PAVA_FORMS(BSLS_FORM_CODE)" in src
+    assert src.count('extern "C"') == 1 and 'extern "C" int bsls_pava_buckets(' in src
+    launcher = src[src.index('extern "C" int bsls_pava_buckets('):]
+    assert re.findall(r"launch_pava<(\w+)>", launcher) == ["1", "2", "4", "kMaxBuckets"]
+    thread = re.search(r"void fit_rows_thread\(.*?\n\}", src, re.S).group(0)
+    assert re.findall(r"fit_\w+", thread) == ["fit_rows_thread", "fit_minimax"]
+    fit = re.search(r"void fit_rows\(.*?\n\}", src, re.S).group(0)
+    assert "fit_rows_thread<LO>" in fit and "fit_rows_stack<R>" in fit
 
 
 def _proj_source():
-    with open(os.path.join(CSRC, "proj_simplex_rows.cu")) as fh:
-        return fh.read()
+    return _source("proj_simplex_rows.cu")
 
 
 def test_proj_plan_agrees_with_the_cuda_switch():
@@ -252,15 +274,16 @@ def test_proj_plan_agrees_with_the_cuda_switch():
     # one instantiation for 1, 2, 4 and kMaxBuckets descriptors
     launcher = src[src.index('extern "C" int bsls_proj_simplex_buckets('):]
     assert re.findall(r"launch_buckets<(\w+)>", launcher) == ["1", "2", "4", "kMaxBuckets"]
-    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
-    assert int(consts["kMaxBuckets"]) == rowkernels.PROJ_MAX_BUCKETS
-    rows = re.search(r"constexpr long long kMaxRows = \(1LL << (\d+)\) - \(1LL << (\d+)\);", src)
-    assert 2 ** int(rows.group(1)) - 2 ** int(rows.group(2)) == rowkernels.PROJ_MAX_ROWS
+    # the caps both row kernels share (csrc/rows_common.cuh)
+    header = _source("rows_common.cuh")
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", header))
+    assert int(consts["kMaxBuckets"]) == rowkernels.MAX_BUCKETS
+    rows = re.search(r"constexpr long long kMaxRows = \(1LL << (\d+)\) - \(1LL << (\d+)\);",
+                     header)
+    assert 2 ** int(rows.group(1)) - 2 ** int(rows.group(2)) == rowkernels.MAX_ROWS
     # the rows of a block, less one, fit below the cap's headroom
     assert max(128 // g for _, _, g, _ in forms) <= 2 ** int(rows.group(2))
-    with open(os.path.join(CSRC, "rows_common.cuh")) as fh:
-        common = dict(re.findall(r"constexpr int (k\w+) = (\d+);", fh.read()))
-    assert int(common["kMaxWidth"]) == rowkernels.MAX_WIDTH
+    assert int(consts["kMaxWidth"]) == rowkernels.MAX_WIDTH
 
 
 @pytest.mark.parametrize("form", rowkernels._PROJ_FORMS, ids=lambda f: f"w{f[0]}-{f[1]}")
@@ -286,10 +309,42 @@ def test_proj_plan_covers_every_width_without_the_generic_form():
     his = [f[1] for f in rowkernels._PROJ_FORMS]
     los = [f[0] for f in rowkernels._PROJ_FORMS]
     assert los == [1] + [h + 1 for h in his[:-1]] and his[-1] == rowkernels.MAX_WIDTH
-    src = _proj_source()
-    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    # the projection's source with the helpers it shares with PAVA
+    code = _code(_proj_source() + _source("rows_common.cuh"))
     assert "proj_device.cuh" not in code and "proj_simplex_row(" not in code
     assert "kMaxWidth]" not in code and "row % " not in code
     # the one remainder by Bk left is 32-bit, of a block index in a small bucket
     assert re.findall(r"\w+ % \w*Bk", code) == ["b % Bk"]
     assert re.search(r"unsigned int block_of\(unsigned int b0, unsigned int off,", code)
+
+
+@pytest.mark.parametrize("form", rowkernels._PAVA_FORMS, ids=lambda f: f"w{f[0]}-{f[1]}")
+def test_every_pava_width_has_a_register_or_shared_form(form):
+    """A thread form is exactly its one width (its loads take the width as
+    the row stride) up to 16, its row and fit in registers; a stack form
+    holds R rows a block in shared memory, R a whole number of warps that
+    divides the block, at most 4096 values (about 17 KB, at least 13 blocks
+    a multiprocessor in a launch that mixes forms, and under the 48 KB a
+    launch takes without an opt-in)."""
+    lo, hi, rows = form
+    if rows == 0:
+        assert lo == hi <= 16
+    else:
+        assert rows % 32 == 0 and 128 % rows == 0 and rows * hi <= 4096
+        smem = hi * (rows + 1) * 4
+        assert smem <= 48 * 1024 and (228 * 1024) // (smem + 1024) >= 13
+
+
+def test_pava_plan_covers_every_width_without_the_generic_form():
+    """Every width 1..MAX_WIDTH has one form, and PAVA's source no longer has
+    the generic kernel, its stack in local memory (arrays of kMaxWidth a
+    thread) or a remainder of the 64-bit row index."""
+    assert sorted(rowkernels.PAVA_PLAN) == list(range(1, rowkernels.MAX_WIDTH + 1))
+    assert {p[0] for p in rowkernels.PAVA_PLAN.values()} == {"thread", "stack"}
+    his = [f[1] for f in rowkernels._PAVA_FORMS]
+    los = [f[0] for f in rowkernels._PAVA_FORMS]
+    assert los == [1] + [h + 1 for h in his[:-1]] and his[-1] == rowkernels.MAX_WIDTH
+    code = _code(_pava_source())
+    assert "pava_rows_generic" not in code and "pava_push" not in code
+    assert "kMaxWidth]" not in code and "row % " not in code and "% Bk" not in code
+    assert "extern __shared__ float sm[];" in code

@@ -1,6 +1,12 @@
 """Bounded isotonic regression and the x<->z change of variable of the
 PyTorch port against the JAX package (XLA function, Pallas kernel in
-interpret mode) and the numpy reference."""
+interpret mode) and the numpy reference; the arithmetic of each form of the
+CUDA kernel, restated in numpy, against the same; and what the grouped
+wrapper refuses and hands its launcher."""
+import contextlib
+import dataclasses
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,12 +14,15 @@ import torch
 
 import bsls_tpu.ops.isotonic as JI
 import bsls_tpu.ops.ztransform as JZ
+import bsls_tpu_torch as bt
 import bsls_tpu_torch.ops.isotonic as TI
 import bsls_tpu_torch.ops.ztransform as TZ
 from bsls_tpu.ops.pallas.pava_kernel import pava_pallas_t
+from bsls_tpu_torch.ops import rowkernels
 from bsls_tpu_torch.utils.refimpl import (
     pava_blocks_np, pava_np, x_to_z_np, z_to_x_np,
 )
+from torch_port_helpers import KERNELS
 
 # tolerance of tests/test_pallas.py: prefix-sum differences in fp32
 ATOL = 3e-5
@@ -90,7 +99,9 @@ def test_pava_blocks_numpy_reference():
 # values of a few hundred with radii of the same size, as the solve path gives
 # the kernel; "full_and_tiny" has every row at n = w, 0 and 1.
 PAVA_KINDS = ["solve_like", "plateaus", "large", "full_and_tiny"]
-PAVA_WIDTHS = [1, 2, 4, 8, 16, 32]
+# every form of the kernel: thread forms (1-12), stack forms of 128, 64 and 32
+# rows a block (13-32, 33-64, 65-128), the last width of each among them
+PAVA_WIDTHS = [1, 2, 3, 4, 5, 8, 12, 16, 17, 24, 32, 33, 64, 100, 128]
 
 
 def _pava_inputs(kind, w, B=37, seed=11):
@@ -135,6 +146,57 @@ def _pava_f64(y, widths, radius):
         if n:
             out[i, :n] = pava_np(y[i, :n].astype(np.float64), lo=0.0, hi=float(radius[i]))
     return out
+
+
+def _stack_form_f32(y, widths, radius):
+    """The arithmetic of the stack form of csrc/pava_rows.cu, restated in
+    numpy float32 in the kernel's order, row by row: pool-adjacent-violators
+    with the sum of the level that starts at slot p kept at slot p, the level
+    starts as the bits of an integer, the top level's start, sum and mean
+    held apart; a level's mean is its sum over its count (rounded here, the
+    kernel's fast division is within 2 ulp of it), the same wherever it is
+    needed; the fit expanded from the last slot down, clipped to [0, radius];
+    a NaN among a row's fitted slots makes all of them NaN."""
+    f = np.float32
+    mean = lambda total, count: f(total / f(count))
+    below = lambda bits, p: (bits & ((1 << p) - 1)).bit_length() - 1  # last start before p
+    out = np.zeros(y.shape, f)
+    for r in range(y.shape[0]):
+        n = max(0, min(int(widths[r]), y.shape[1]))
+        col = y[r].astype(f).copy()
+        bits, bad, ts, tsum, tmean = 0, False, 0, f(0.0), f(0.0)
+        for i in range(n):
+            v = col[i]
+            bad |= bool(np.isnan(v))
+            cs, csum, cmean = i, v, v
+            while cs > 0 and tmean > cmean:
+                bits &= ~(1 << cs)
+                csum = f(csum + tsum)
+                cs = ts
+                cmean = mean(csum, i + 1 - cs)
+                if cs > 0:
+                    ts = below(bits, cs)
+                    tsum = col[ts]
+                    tmean = mean(tsum, cs - ts)
+            bits |= 1 << cs
+            col[cs] = csum
+            ts, tsum, tmean = cs, csum, cmean
+        st, o = n, f(0.0)
+        for i in range(n - 1, -1, -1):
+            if i < st:
+                end, st = st, below(bits, st)
+                o = f(np.nan) if bad else min(max(mean(col[st], end - st), f(0.0)), f(radius[r]))
+            col[i] = o
+        col[n:] = 0.0
+        out[r] = col
+    return out
+
+
+def _kernel_form_f32(y, widths, radius):
+    """The arithmetic of the form the kernel takes at this width
+    (``rowkernels.PAVA_PLAN``), restated."""
+    form = rowkernels.PAVA_PLAN[y.shape[1]][0]
+    return (_minimax_form_f32 if form == "thread" else _stack_form_f32)(y, widths, radius)
 
 
 def _minimax_form_f32(y, widths, radius):
@@ -187,16 +249,25 @@ def test_plain_pava_against_references_on_kernel_inputs(kind, w):
 @pytest.mark.parametrize("w", PAVA_WIDTHS)
 @pytest.mark.parametrize("kind", PAVA_KINDS)
 def test_kernel_minimax_form_restated_matches_float64_pava(kind, w):
-    """The kernel's own arithmetic, restated: within ATOL times the inputs'
-    magnitude of the float64 PAVA and of the plain version, exactly
-    nondecreasing (each mean is computed once and reused) and inside [0, radius]."""
+    """The kernel's own arithmetic at this width, restated (the minimax
+    formula where the width takes a thread form, the stack where it takes a
+    stack form): within ATOL times the inputs' magnitude of the float64 PAVA,
+    of the plain version and of the reference's XLA function and Pallas
+    kernel in interpret mode, exactly nondecreasing (each mean is computed
+    once and reused) and inside [0, radius]."""
     y, widths, radius = _pava_inputs(kind, w)
     tol = ATOL * max(1.0, float(np.abs(y).max()), float(radius.max()))
-    got = _minimax_form_f32(y, widths, radius)
+    got = _kernel_form_f32(y, widths, radius)
     np.testing.assert_allclose(got, _pava_f64(y, widths, radius), rtol=0, atol=tol)
     plain = TI.pava_bounded(torch.from_numpy(y), torch.from_numpy(widths),
                             torch.from_numpy(radius)).numpy()
     np.testing.assert_allclose(got, plain, rtol=0, atol=tol)
+    mask = (np.arange(w)[None, :] < widths[:, None]).astype(np.float32)
+    xla = np.asarray(JI.pava_padded(jnp.asarray(y), jnp.asarray(mask), 0.0, jnp.asarray(radius)))
+    np.testing.assert_allclose(got, xla, rtol=0, atol=tol)
+    pallas = np.asarray(pava_pallas_t(jnp.asarray(y), jnp.asarray(widths), jnp.asarray(radius),
+                                      tile=128, interpret=True))
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=tol)
     inner = np.arange(1, w)[None, :] < widths[:, None]
     assert np.all(np.diff(got, axis=1)[inner] >= 0.0)
     assert np.all(got >= 0.0) and np.all(got <= radius[:, None])
@@ -205,8 +276,9 @@ def test_kernel_minimax_form_restated_matches_float64_pava(kind, w):
 @pytest.mark.parametrize("w", PAVA_WIDTHS)
 def test_nan_rows_kernel_form_restated_matches_plain(w):
     """A NaN among a row's fitted slots makes all of them NaN in the plain
-    version and in the kernel's arithmetic restated; a NaN in a padding slot
-    changes nothing; the other rows keep their fit."""
+    version, in the kernel's arithmetic restated (the form of this width) and
+    in the reference's Pallas kernel; a NaN in a padding slot changes
+    nothing; the other rows keep their fit."""
     y, widths, radius = _pava_inputs("large", w)
     rng = np.random.default_rng(w)
     hit = np.zeros(len(widths), bool)
@@ -219,11 +291,14 @@ def test_nan_rows_kernel_form_restated_matches_plain(w):
     tol = ATOL * max(1.0, float(np.nanmax(np.abs(y))), float(radius.max()))
     plain = TI.pava_bounded(torch.from_numpy(y), torch.from_numpy(widths),
                             torch.from_numpy(radius)).numpy()
-    got = _minimax_form_f32(y, widths, radius)
+    got = _kernel_form_f32(y, widths, radius)
     inside = np.arange(w)[None, :] < widths[:, None]
     assert hit.any()
     np.testing.assert_array_equal(np.isnan(plain), hit[:, None] & inside)
     np.testing.assert_array_equal(np.isnan(got), np.isnan(plain))
+    pallas = np.asarray(pava_pallas_t(jnp.asarray(y), jnp.asarray(widths), jnp.asarray(radius),
+                                      tile=128, interpret=True))
+    np.testing.assert_array_equal(np.isnan(pallas), np.isnan(plain))
     np.testing.assert_allclose(got[~hit], _pava_f64(y[~hit], widths[~hit], radius[~hit]),
                                rtol=0, atol=tol)
 
@@ -266,3 +341,108 @@ def test_ztransform_roundtrip_and_adjoint():
     lhs = (TZ.dz_forward_padded(dz, mask) * g * mask).sum()
     rhs = (dz * TZ.zmask(mask) * TZ.dz_adjoint_padded(g * mask, mask)).sum()
     assert float(lhs) == pytest.approx(float(rhs), rel=1e-5, abs=1e-5)
+
+
+def _meta_bucket(S, Bk, w, device="cpu"):
+    return (torch.zeros((S, Bk, w), device=device),
+            torch.ones(Bk, dtype=torch.int32, device=device),
+            torch.ones(Bk, device=device))
+
+
+@pytest.mark.parametrize("case", ["cpu", "mixed_devices", "width_129", "float64", "int_values"])
+def test_pava_buckets_refuses(case):
+    """A bucket list the kernel does not take raises, and nothing launches:
+    tensors on the CPU (the wrapper never falls back), on two devices, a
+    width past 128, float64 or integer values."""
+    buckets = [_meta_bucket(2, 5, 4), _meta_bucket(2, 3, 12)]
+    want = (ValueError, "CUDA")
+    if case == "mixed_devices":
+        buckets[1] = _meta_bucket(2, 3, 12, device="meta")
+        want = (ValueError, "different devices")
+    elif case == "width_129":
+        buckets[1] = _meta_bucket(2, 3, 129)
+        want = (ValueError, "width 129")
+    elif case == "float64":
+        buckets[0] = (buckets[0][0].double(), buckets[0][1], buckets[0][2].double())
+        want = (TypeError, "float32")
+    elif case == "int_values":
+        buckets[0] = (buckets[0][0].int(),) + buckets[0][1:]
+        want = (TypeError, "float32")
+    bt.reset_launch_counts()
+    with pytest.raises(want[0], match=want[1]):
+        rowkernels.pava_buckets(*zip(*buckets))
+    assert bt.launch_counts() == dict.fromkeys(KERNELS, 0)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card: the branch of
+    ``pava_blocks`` that launches, with the library replaced by a recorder."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _eq_buckets():
+    """The buckets of a traffic-like instance (widths 2, 4, 8 and its
+    largest block), prepared on the CPU."""
+    prob = bt.synthetic.traffic_like(seed=0, num_blocks=60, m=300, num_eq=3)
+    dp = bt.prepare(dataclasses.replace(prob, C=None, d=None), layout="gather", device="cpu")
+    assert len(dp.buckets) >= 3
+    return dp.buckets
+
+
+def test_pava_blocks_hands_every_bucket_to_one_launch(monkeypatch):
+    """One ``pava_blocks`` call on the card hands every bucket to one launch
+    of ``bsls_pava_buckets``: in order, scenarios folded, the z-space widths
+    (block size - 1) the bucket keeps, one launch count."""
+    calls = []
+
+    def launcher(y, out, widths, radius, S, Bk, w, nb, stream):
+        calls.append({"y": list(y[:nb]), "out": list(out[:nb]), "widths": list(widths[:nb]),
+                      "radius": list(radius[:nb]), "S": list(S[:nb]), "Bk": list(Bk[:nb]),
+                      "w": list(w[:nb])})
+        return 0
+
+    monkeypatch.setattr(rowkernels, "_pava_fn", lambda: launcher)
+    monkeypatch.setattr(rowkernels, "_on_one_cuda_device", lambda name, ts: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    buckets = _eq_buckets()
+    yp = tuple(torch.zeros((4,) + tuple(bk.mask.shape)).as_subclass(_OnCard) for bk in buckets)
+    bt.reset_launch_counts()
+    outs = TI.pava_blocks(yp, buckets)
+    counts = bt.launch_counts()
+    bt.reset_launch_counts()
+    assert len(calls) == counts["pava_rows"] == 1
+    assert counts == {**dict.fromkeys(KERNELS, 0), "pava_rows": 1}
+    call, = calls
+    assert call["y"] == [y.data_ptr() for y in yp]
+    assert call["out"] == [o.data_ptr() for o in outs]
+    assert call["widths"] == [bk.zwidths.data_ptr() for bk in buckets]
+    assert call["radius"] == [bk.radius.data_ptr() for bk in buckets]
+    assert call["S"] == [4] * len(buckets)
+    assert call["Bk"] == [bk.mask.shape[0] for bk in buckets]
+    assert call["w"] == [bk.width for bk in buckets]
+    for bk in buckets:
+        np.testing.assert_array_equal(bk.zwidths.numpy(), np.maximum(bk.sizes.numpy() - 1, 0))
+
+
+def test_pava_blocks_on_cpu_at_the_eq_buckets_launches_nothing():
+    """The same buckets through the plain version on the CPU: no launch, each
+    bucket the one-bucket plain fit of its z-space widths, and within ATOL of
+    the reference's XLA function."""
+    buckets = _eq_buckets()
+    rng = np.random.default_rng(12)
+    yp = tuple(torch.from_numpy((rng.standard_normal((2,) + tuple(bk.mask.shape)) * 2)
+                                .astype(np.float32)) for bk in buckets)
+    bt.reset_launch_counts()
+    out = TI.pava_blocks(yp, buckets)
+    assert bt.launch_counts() == dict.fromkeys(KERNELS, 0)
+    for o, y, bk in zip(out, yp, buckets):
+        widths = torch.clamp(bk.sizes - 1, min=0)
+        assert torch.equal(o, TI.pava_bounded(y, widths, bk.radius))
+        mask = (np.arange(bk.width)[None, :] < widths.numpy()[:, None]).astype(np.float32)
+        want = np.asarray(JI.pava_padded(jnp.asarray(y.numpy()), jnp.asarray(mask), 0.0,
+                                         jnp.asarray(bk.radius.numpy())))
+        np.testing.assert_allclose(o.numpy(), want, rtol=0, atol=ATOL * float(bk.radius.max()))

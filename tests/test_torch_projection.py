@@ -182,7 +182,7 @@ def test_proj_simplex_buckets_refuses(case):
 def test_proj_simplex_buckets_hands_every_bucket_to_one_launch(monkeypatch):
     """The descriptor arrays the wrapper hands ``bsls_proj_simplex_buckets``
     (the library replaced by a recorder): buckets in order, empty ones left
-    out, scenarios folded, at most PROJ_MAX_BUCKETS a launch, one count a
+    out, scenarios folded, at most MAX_BUCKETS a launch, one count a
     launch."""
     calls = []
 
@@ -206,7 +206,7 @@ def test_proj_simplex_buckets_hands_every_bucket_to_one_launch(monkeypatch):
     assert [tuple(o.shape) for o in outs] == shapes
     live = [i for i, sh in enumerate(shapes) if sh[1]]
     assert len(calls) == counts["proj_simplex_rows"] == 2
-    assert [len(c["w"]) for c in calls] == [rowkernels.PROJ_MAX_BUCKETS, len(live) - 8]
+    assert [len(c["w"]) for c in calls] == [rowkernels.MAX_BUCKETS, len(live) - 8]
     got = {k: sum((c[k] for c in calls), []) for k in calls[0]}
     assert got["v"] == [xs[i].data_ptr() for i in live]
     assert got["out"] == [outs[i].data_ptr() for i in live]
