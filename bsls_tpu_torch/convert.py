@@ -153,12 +153,15 @@ def state_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> PGDState:
         t = torch.tensor(np.asarray(a), dtype=dtype, device=dev)  # a copy
         return t if t.ndim == ndim else t[None]
 
+    f = lead(d["f"], 1)
+    # the reference's k: a scalar for one right-hand side, (S,) under vmap
+    k = torch.tensor(np.asarray(d["k"]), dtype=torch.int32, device=dev)
     return PGDState(
         xp=tuple(lead(x, 3) for x in _numbered(d, "xp")),
         r=lead(d["r"], 2),
-        f=lead(d["f"], 1),
+        f=f,
         gap=lead(d["gap"], 1),
-        k=int(np.max(d["k"])),
+        k=k.expand(f.shape).clone(),
         x_prev=lead(d["x_prev"], 2),
         g_prev=lead(d["g_prev"], 2),
     )

@@ -8,18 +8,25 @@ with ``ctypes``.  Nothing happens at import.  The wrapper modules
 of their own functions, pass pointers from ``tensor.data_ptr()`` and the
 stream of ``torch.cuda.current_stream()``, and record every launch here.
 
+A launch made while a thread captures a CUDA graph (``recording``) runs
+only when the graph is replayed: it is counted into the capture's record,
+and the graph adds that record at each replay (``add_record``).  ``count``
+is the same rule for any other counter of launches.
+
 Nothing here falls back: if the build, the load or a launch fails, the error
 propagates.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
 import subprocess
 import threading
 
-__all__ = ["build_library", "load", "launched", "launch_counts", "reset_launch_counts"]
+__all__ = ["build_library", "load", "launched", "launch_counts", "reset_launch_counts",
+           "count", "recording", "add_record"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _SOURCES = ("proj_simplex_rows.cu", "pava_rows.cu", "band_pages.cu", "pgd_chunk.cu")
@@ -45,12 +52,45 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
 
 
+_capture = threading.local()  # .record: the capture this thread is making
+
+
+def count(counter: dict, name: str, n: int = 1) -> None:
+    """Add ``n`` to ``counter[name]``, or, while this thread captures a graph,
+    to the capture's record (the launch happens at each replay)."""
+    record = getattr(_capture, "record", None)
+    if record is None:
+        counter[name] += n
+    else:
+        key = (id(counter), name)
+        record[key] = (counter, name, record.get(key, (counter, name, 0))[2] + n)
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect the counts of this thread's launches into a record instead of
+    the counters (while it captures a graph); yields the record."""
+    if getattr(_capture, "record", None) is not None:
+        raise RuntimeError("a graph capture is already recording in this thread")
+    _capture.record = {}
+    try:
+        yield _capture.record
+    finally:
+        _capture.record = None
+
+
+def add_record(record: dict) -> None:
+    """Add a capture's counts to their counters: one replay of its graph."""
+    for counter, name, n in record.values():
+        counter[name] += n
+
+
 def launched(name: str, err: int) -> None:
     """Called by a wrapper right after its launch with the launch's
     ``cudaError_t``: raises on a refused launch, counts an accepted one."""
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    _LAUNCHES[name] += 1
+    count(_LAUNCHES, name)
 
 
 def _nvcc() -> str:

@@ -23,6 +23,7 @@ __all__ = [
     "exact_step",
     "bb_step",
     "diag_quad",
+    "inv_lipschitz",
 ]
 
 
@@ -78,3 +79,12 @@ def bb_step(dx_dot_dx, dx_dot_dg, fallback, t_lo=1e-12, t_hi=1e12):
     t = dx_dot_dx / torch.where(dx_dot_dg > 0, dx_dot_dg, torch.ones_like(dx_dot_dg))
     ok = (dx_dot_dg > 1e-30) & torch.isfinite(t)
     return torch.clamp(torch.where(ok, t, fallback), t_lo, t_hi)
+
+
+def inv_lipschitz(L_est, like: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """``scale / L`` as a fresh tensor shaped like ``like`` (one value per
+    scenario), from a float or a float64 0-d tensor ``L_est``: a captured
+    chunk reads L from its input buffer, so a step never bakes L in as a
+    constant.  The division is taken in float64 and rounded once to
+    ``like``'s dtype either way, so both give the same bits."""
+    return torch.zeros_like(like).add_(scale / L_est)

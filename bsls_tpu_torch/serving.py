@@ -13,7 +13,10 @@ and runs a chunked solve on the device.
 
 The layout is fixed when the endpoint is built, by the width of the
 problem's own b (``prepare``'s ``layout="auto"``).  Every request still runs
-the power iteration and the throwaway warm-up step of ``solve``.
+the power iteration of ``solve``.  On the card a request's chunks replay the
+CUDA graph captured for the endpoint's prepared problem at that batch width
+(``solvers/graph.py``): the first request of a width (or ``warmup``)
+captures it, and later ones replay it with their own b.
 
 An equality-constrained problem (``C``) is served by the augmented-Lagrangian
 loop: its stacked operator is prepared by the first request and kept in the
@@ -223,7 +226,8 @@ class Endpoint:
 
     def warmup(self, num_scenarios: int = 1) -> None:
         """Run one chunk at a batch width before traffic: the kernel
-        library's load and the first launches of every operation."""
+        library's load, the first launches of every operation and, on the
+        card, the capture of the chunk's graph at that width."""
         shape = (self._m,) if num_scenarios == 1 else (num_scenarios, self._m)
         if self._eq:
             self.solve(np.zeros(shape, np.float32), tol=0.0, max_iter=self.chunk,

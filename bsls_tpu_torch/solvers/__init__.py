@@ -6,7 +6,7 @@ from .eq_constrained import (
     eq_dual_bound, eq_multiplier_polish, prox_bpp_polish, solve_eq_sensitivity,
     solve_equality_constrained,
 )
-from . import apgd, eq_constrained, frank_wolfe, lbfgs, mirror_descent, pgd
+from . import apgd, eq_constrained, frank_wolfe, graph, lbfgs, mirror_descent, pgd
 
 __all__ = [
     "SolveOptions",
@@ -26,6 +26,7 @@ __all__ = [
     "apgd",
     "eq_constrained",
     "frank_wolfe",
+    "graph",
     "lbfgs",
     "mirror_descent",
     "pgd",

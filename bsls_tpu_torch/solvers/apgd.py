@@ -79,7 +79,8 @@ def step(dp, st: APGDState, L_est, opts: SolveOptions) -> APGDState:
     y_flat = L.padded_to_flat(dp, st.yp)
     gap = fw_gap(dp, g_flat, y_flat, gp)
 
-    step_t = opts.step_size if opts.step_size > 0 else 1.0 / float(L_est)
+    step_t = (opts.step_size if opts.step_size > 0
+              else Q.inv_lipschitz(L_est, st.f)[:, None, None])
     xhat = projection.proj_blocks(tuple(y - step_t * g for y, g in zip(st.yp, gp)),
                                   dp.buckets)
     d_flat = L.padded_to_flat(dp, tuple(xh - y for xh, y in zip(xhat, st.yp)))

@@ -14,7 +14,11 @@ leading scenario axis S.
 ``solve`` runs chunks of K steps in a Python loop and reads back the
 end-of-chunk (f, gap) once per chunk — convergence checks, wall-clock trace
 and metrics all amortise over the chunk.  Solvers never branch on data on
-the host inside a chunk.
+the host inside a chunk, and keep every field of their state on the device:
+on a CUDA device a chunk is one captured CUDA graph, cached across calls by
+the reference's key (``solvers/graph.py``, the counterpart of the
+reference's compiled chunk), and replayed once a chunk; on the CPU the
+chunk runs eagerly (``make_chunk_runner``).
 
 Iterations use an *incremental residual* (r += t * A d), so PGD costs two
 matvec-equivalents per iteration; ``refresh`` recomputes r exactly at every
@@ -308,20 +312,23 @@ def _get_solver(method: str):
     return table[method]
 
 
-def _warm_up(device: torch.device, first_launch: Callable[[], Any]) -> None:
+def _warm_up(device: torch.device, first_launch: Callable[[], Any]):
     """Load the kernel library (building it with nvcc when it is stale) and
     make the path's first launches, before the chunk clock starts: a fresh
     process would otherwise book the load, the first launch of every kernel
     (the fused chunk's first cooperative launch among them) and the first
     launch of every torch operation into ``chunk_times[0]``, and through it
-    into ``time_to_gap``.  ``first_launch`` runs one step (or one fused
-    chunk) whose result is dropped; the steps do not write into their input
-    state.  No fallback: a library that does not load raises here."""
+    into ``time_to_gap``.  ``first_launch`` makes the chunk's runner
+    (``chunk_program``: on the card the capture of its graph, which runs one
+    throwaway step first) or runs one fused chunk whose result is dropped;
+    its result is returned.  No fallback: a library that does not load
+    raises here."""
     if device.type == "cuda":
         cudalib.load()
-    first_launch()
+    out = first_launch()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    return out
 
 
 def _polish_cg(dp, free_pf: torch.Tensor, g0t_pf: torch.Tensor, iters: int) -> torch.Tensor:
@@ -598,10 +605,22 @@ def refine_polish(problem: Problem, dp, res: SolveResult, rounds: int = 3,
     )
 
 
+def lipschitz_tensor(L_est, device) -> torch.Tensor:
+    """L as the float64 0-d tensor on ``device`` that a chunk's steps read."""
+    if isinstance(L_est, torch.Tensor):
+        return L_est.to(device=device, dtype=torch.float64)
+    return torch.full((), float(L_est), dtype=torch.float64, device=device)
+
+
 def make_chunk_runner(dp, solver, opts, L_est, steps: int):
     """run(state) -> (state, (trace_f, trace_gap)): ``steps`` solver steps
     after an exact residual refresh, the per-step traces (S, steps) left on
-    the device."""
+    the device.  The eager runner: one launch at a time.  ``L_est`` (a float
+    or a 0-d tensor) reaches the steps as a float64 0-d tensor, as in the
+    captured chunk (``solvers/graph.py``), so that both take the same
+    operations."""
+    L_est = lipschitz_tensor(L_est, dp.device)
+
     def run(st):
         st = solver.refresh(dp, st, L_est, opts)
         tf = torch.empty((st.f.shape[0], steps), dtype=st.f.dtype, device=dp.device)
@@ -613,6 +632,21 @@ def make_chunk_runner(dp, solver, opts, L_est, steps: int):
         return st, (tf, tg)
 
     return run
+
+
+def chunk_program(dp, solver, opts, L_est, steps: int, state):
+    """The chunk runner of a solve, made before its clock starts.  On a CUDA
+    device: the cached CUDA graph of the chunk (``solvers/graph.py``, the
+    counterpart of the reference's compiled chunk), captured now when its
+    key is new.  On the CPU, and on a mesh rank (whose chunk is not captured
+    yet): the eager runner, after one throwaway step from ``state``.  The
+    device's type alone decides; nothing falls back."""
+    if dp.device.type == "cuda" and not dp.sharded:
+        from .graph import graph_runner
+
+        return graph_runner(dp, solver, opts, L_est, steps, state)
+    solver.step(dp, state, L_est, opts)
+    return make_chunk_runner(dp, solver, opts, L_est, steps)
 
 
 @dataclass
@@ -836,17 +870,19 @@ def solve(
     from .mega import make_mega_runner
 
     mega_run = None if multi else make_mega_runner(dp, method, opts, L_est, chunk)
-    run_chunk = make_chunk_runner(dp, solver, opts, L_est, chunk)
-    run = mega_run if mega_run is not None else run_chunk
     it = 0
     if resume and checkpoint_path:
         ck = latest_checkpoint(checkpoint_path)
         if ck:
             state, meta = load_state(ck, state)
             it = int(meta.get("iteration", 0))
+    run = mega_run
     if it < max_iter:
-        _warm_up(dp.device, (lambda: mega_run(state)) if mega_run is not None
-                 else (lambda: solver.step(dp, state, L_est, opts)))
+        if mega_run is not None:
+            _warm_up(dp.device, lambda: mega_run(state))
+        else:
+            run = _warm_up(dp.device,
+                           lambda: chunk_program(dp, solver, opts, L_est, chunk, state))
 
     def after_chunk(it, chunks_done, st, f_last, rel, secs):
         if not multi:
@@ -879,7 +915,7 @@ def solve(
         opts_c = SolveOptions(method="afw", line_search="exact", tol=0.0,
                               max_iter=certify, chunk=certify)
         state_c = _fw.init(dp, L_est, opts_c, xp0=state.xp)
-        state_c, _ = make_chunk_runner(dp, _fw, opts_c, L_est, certify)(state_c)
+        state_c, _ = chunk_program(dp, _fw, opts_c, L_est, certify, state_c)(state_c)
         f_c = state_c.f.cpu().numpy()
         if bool(np.all(f_c <= state.f.cpu().numpy() + 1e-12)):
             state = replace(state, xp=state_c.xp, r=state_c.r, f=state_c.f, gap=state_c.gap)

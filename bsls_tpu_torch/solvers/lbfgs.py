@@ -218,7 +218,7 @@ def step(dp, st: LBFGSState, L_est, opts: SolveOptions) -> LBFGSState:
 
     # ---- quasi-Newton projection-arc candidate ----
     qp = L.flat_to_padded(dp, compact_hg(dp, gu_flat, st))
-    t0 = 1.0 / float(L_est)
+    t0 = Q.inv_lipschitz(L_est, st.f)[:, None, None]
     if zspace:
         def arc(yp):
             zhat = isotonic.pava_blocks(yp, dp.buckets)

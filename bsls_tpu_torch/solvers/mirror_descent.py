@@ -75,7 +75,7 @@ def step(dp, st: EGState, L_est, opts: SolveOptions) -> EGState:
     gp = L.flat_to_padded(dp, g_flat)
     gap = fw_gap(dp, g_flat, x_flat, gp)
 
-    inv_l = torch.full_like(st.f, 1.0 / float(L_est))
+    inv_l = Q.inv_lipschitz(L_est, st.f)
     if opts.step_size > 0:
         t0 = torch.full_like(st.f, opts.step_size)
     elif opts.line_search == "bb":
@@ -88,7 +88,7 @@ def step(dp, st: EGState, L_est, opts: SolveOptions) -> EGState:
         ss = L.xdot(dp, s, s)
         sy = L.xdot(dp, s, y)
         t_bb = torch.where(sy > 0, ss / torch.clamp(sy, min=1e-30), inv_l)
-        cap = torch.full_like(st.f, 1e6 / float(L_est))
+        cap = Q.inv_lipschitz(L_est, st.f, 1e6)
         t_bb = torch.minimum(torch.clamp(t_bb, min=0.0), cap)
         t0 = torch.where(st.k > 0, t_bb, inv_l)
     else:

@@ -35,7 +35,7 @@ class PGDState:
     r: torch.Tensor  # (S, m) residual A x - b, in the device row order
     f: torch.Tensor  # (S,)
     gap: torch.Tensor  # (S,)
-    k: int  # iterations taken
+    k: torch.Tensor  # (S,) int32 iterations taken, on the device
     x_prev: torch.Tensor  # (S, n_pf) previous iterate, for BB (x- or z-space)
     g_prev: torch.Tensor  # (S, n_pf) previous gradient, same space
 
@@ -65,7 +65,7 @@ def init(dp: L.DeviceProblem, L_est, opts: SolveOptions, xp0=None) -> PGDState:
     return PGDState(
         xp=xp, r=r, f=f,
         gap=torch.full_like(f, float("inf")),
-        k=0,
+        k=torch.zeros(f.shape, dtype=torch.int32, device=f.device),
         x_prev=x_flat,
         g_prev=torch.zeros_like(x_flat),
     )
@@ -98,17 +98,21 @@ def step(dp, st: PGDState, L_est, opts: SolveOptions) -> PGDState:
         zp = gzp = None
         u_flat, gu_flat = x_flat, g_flat
 
-    t0 = torch.full_like(st.f, opts.step_size if opts.step_size > 0 else 1.0 / float(L_est))
+    t0 = (torch.full_like(st.f, opts.step_size) if opts.step_size > 0
+          else Q.inv_lipschitz(L_est, st.f))
     if opts.line_search in ("bb", "bbm") or zspace:
         # z-space modes always take the spectral (BB) trial step: the exact
         # segment step below is clipped to t<=1 (feasibility of the z-segment),
         # so a 1/L_z trial — with L_z = O(w^2)||A||^2 — would cap per-iteration
         # progress at the tiny trial step itself.  BB adapts to the local
-        # curvature; the exact safeguard keeps pava monotone.
-        if st.k > 0:
-            du = u_flat - st.x_prev
-            dg = gu_flat - st.g_prev
-            t0 = Q.bb_step(L.xdot(dp, du, du), L.xdot(dp, du, dg), fallback=t0)
+        # curvature; the exact safeguard keeps pava monotone.  The first
+        # iteration takes the 1/L step; its BB candidate (from init's finite
+        # x_prev and zero g_prev) is computed and dropped, so that no branch
+        # on the host reads k.
+        du = u_flat - st.x_prev
+        dg = gu_flat - st.g_prev
+        t_bb = Q.bb_step(L.xdot(dp, du, du), L.xdot(dp, du, dg), fallback=t0)
+        t0 = torch.where(st.k > 0, t_bb, t0)
     t0b = t0[:, None, None]
 
     if zspace:

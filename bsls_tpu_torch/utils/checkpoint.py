@@ -18,7 +18,9 @@ A checkpoint is a plain ``.npz`` of the flattened state:
 
 Tensors are saved through ``.cpu().numpy()`` and loaded onto the device and
 dtype of the state they are loaded into.  A field that is ``None`` stays
-``None``; a Python scalar field comes back as the same type.
+``None``; a Python scalar field comes back as the same type.  A file that
+holds ``PGDState.k`` as a scalar (it was a Python int before it moved onto
+the device) still loads: the count is taken for every scenario.
 
 **On a mesh** (``shard=`` from ``parallel/sharding.py``) every rank writes its
 own slice of the state, with each leaf's global offset and global shape and
@@ -155,9 +157,15 @@ def _prune(path: str, keep: int, suffix: str = "") -> None:
 
 
 def _restore(a: np.ndarray, ref, i: int):
-    """Leaf ``i`` as the type of ``ref``, after its shape and dtype check."""
+    """Leaf ``i`` as the type of ``ref``, after its shape and dtype check.  An
+    integer scalar where ``ref`` is an integer (S,) tensor is a ``PGDState.k``
+    of a file written while it was a Python int: it is taken for every
+    scenario."""
     if isinstance(ref, torch.Tensor):
         want_shape, want_dtype = tuple(ref.shape), torch.empty(0, dtype=ref.dtype).numpy().dtype
+        if (a.ndim == 0 and ref.ndim == 1 and a.dtype.kind in "iu"
+                and not ref.dtype.is_floating_point):
+            a = np.full(want_shape, a, dtype=want_dtype)
     else:
         r = np.asarray(ref)
         want_shape, want_dtype = r.shape, r.dtype
@@ -169,7 +177,7 @@ def _restore(a: np.ndarray, ref, i: int):
         return torch.from_numpy(a).to(ref.device)
     if isinstance(ref, np.ndarray):
         return a
-    return type(ref)(a)  # a Python scalar (e.g. PGDState.k)
+    return type(ref)(a)  # a Python scalar
 
 
 def load_state(path: str, like: Any, shard: dict | None = None):

@@ -10,15 +10,19 @@ iteration spends the device's time (``profile_steps`` and the command below).
         --line-search bbm --layout auto
     python -m bsls_tpu_torch.utils.profiling --method lbfgs,eg,afw --iters 30
 
-Runs ``iters`` steps of a solver (``--method``, default pgd; several
-methods or line searches separated by commas, one line each) under
-``torch.profiler`` after a warm-up and prints one JSON line per run: wall time per iteration (host clock around
-a synchronised window), the device's busy time per iteration (union of the
+Runs one chunk of ``iters`` iterations of a solver (``--method``, default
+pgd; several methods or line searches separated by commas, one line each)
+under ``torch.profiler`` after a warm-up, once with the eager runner and
+once as a replay of the chunk's captured CUDA graph (under ``graph``), and
+prints one JSON line per run: wall time per iteration (host clock around a
+synchronised window), the device's busy time per iteration (union of the
 kernel intervals), its idle share, the NCCL kernels' device time and share of
 the busy time (a sharded problem's collectives), and the kernels by name
 with their device time and launches per iteration (the sixteen largest and
-every kernel of ``csrc/``).  Needs a CUDA device; a trace without any device event is an
-error, not a result.
+every kernel of ``csrc/``).  Needs a CUDA device; an eager trace without any
+device event is an error, not a result.  Where the profiler shows none of a
+graph's kernels, the graph's device figures are None and its time is the
+one read between CUDA events.
 """
 from __future__ import annotations
 
@@ -48,26 +52,20 @@ def trace(log_dir: Optional[str]) -> Iterator[None]:
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}.json"))
 
 
-def profile_steps(dp, line_search: str, iters: int, warmup: int = 5, trace_path=None,
-                  method: str = "pgd") -> dict:
-    from ..solvers.base import (
-        SolveOptions, _get_solver, power_lipschitz, power_lipschitz_z, uses_zspace,
-    )
-
-    solver = _get_solver(method)
-    opts = SolveOptions(method=method, line_search=line_search)
-    power = power_lipschitz_z if uses_zspace(method, line_search) else power_lipschitz
-    L_est = power(dp)
-    st = solver.init(dp, L_est, opts)
-    for _ in range(warmup):
-        st = solver.step(dp, st, L_est, opts)
-    torch.cuda.synchronize()
-
+def _profile(run, iters: int, trace_path=None) -> dict:
+    """``run()`` (``iters`` solver iterations, ending on the device) once
+    under ``torch.profiler``: wall time per iteration (host clock around a
+    synchronised window), the device's busy time (union of the kernel
+    intervals) and idle share, the NCCL kernels' time, the kernels by name,
+    and the peak of allocated device memory during the run (a graph's
+    intermediates live in its pool, outside that count).  None for the
+    device figures when the trace holds no device event."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(iters):
-            st = solver.step(dp, st, L_est, opts)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if trace_path:
@@ -81,8 +79,12 @@ def profile_steps(dp, line_search: str, iters: int, warmup: int = 5, trace_path=
         rec = by_name.setdefault(e.name, [0, 0.0])
         rec[0] += 1
         rec[1] += e.time_range.end - e.time_range.start
+    out = {"iters": iters, "wall_ms_per_iter": 1e3 * wall / iters,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
     if not spans:
-        raise RuntimeError("the profiler recorded no device event: time with CUDA events instead")
+        return {**out, "device_busy_ms_per_iter": None, "device_idle_share": None,
+                "launches_per_iter": None, "nccl_ms_per_iter": None,
+                "nccl_share_of_busy": None, "kernels": []}
     spans.sort()
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -100,10 +102,7 @@ def profile_steps(dp, line_search: str, iters: int, warmup: int = 5, trace_path=
     # the sixteen largest, and the hand-written kernels of csrc/ wherever they rank
     kernels = kernels[:16] + [kv for kv in kernels[16:] if "bsls::" in kv[0]]
     return {
-        "method": method,
-        "line_search": line_search,
-        "iters": iters,
-        "wall_ms_per_iter": 1e3 * wall / iters,
+        **out,
         "device_busy_ms_per_iter": busy / 1e3 / iters,
         "device_idle_share": 1.0 - busy / window,
         "launches_per_iter": sum(c for c, _ in by_name.values()) / iters,
@@ -114,6 +113,55 @@ def profile_steps(dp, line_search: str, iters: int, warmup: int = 5, trace_path=
             for name, (c, us) in kernels
         ],
     }
+
+
+def _event_ms(run, reps: int = 3) -> float:
+    """Mean device time of ``run()`` between two CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profile_steps(dp, line_search: str, iters: int, warmup: int = 1, trace_path=None,
+                  method: str = "pgd", graph: bool = True) -> dict:
+    """One chunk of ``iters`` iterations (the exact residual refresh and the
+    steps, as ``solve`` runs it) two ways on the same state: the eager
+    runner, whose figures are the top-level keys, and replays of the
+    chunk's captured CUDA graph (``solvers/graph.py``), under ``graph``
+    (None with ``graph=False``, and on a mesh rank, whose chunk is not
+    captured yet).  A graph's kernels that the profiler does not see leave
+    its device figures None; its wall time is also read between CUDA events
+    (``event_ms_per_iter``)."""
+    from ..solvers.base import (
+        SolveOptions, _get_solver, make_chunk_runner, power_lipschitz, power_lipschitz_z,
+        uses_zspace,
+    )
+    from ..solvers.graph import graph_runner
+
+    solver = _get_solver(method)
+    opts = SolveOptions(method=method, line_search=line_search, chunk=iters)
+    power = power_lipschitz_z if uses_zspace(method, line_search) else power_lipschitz
+    L_est = power(dp)
+    st = solver.init(dp, L_est, opts)
+    eager = make_chunk_runner(dp, solver, opts, L_est, iters)
+    replay = (graph_runner(dp, solver, opts, L_est, iters, st)
+              if graph and not dp.sharded else None)
+    for _ in range(warmup):
+        eager(st)
+        if replay is not None:
+            replay(st)
+    out = _profile(lambda: eager(st), iters, trace_path)
+    g = None
+    if replay is not None:
+        g = _profile(lambda: replay(st), iters)
+        g["event_ms_per_iter"] = _event_ms(lambda: replay(st)) / iters
+        g["profiler_saw_graph"] = g["device_busy_ms_per_iter"] is not None
+        g["pool_bytes"] = replay.program.pool_bytes
+    return {"method": method, "line_search": line_search, **out, "graph": g}
 
 
 def main(argv=None):
@@ -145,6 +193,9 @@ def main(argv=None):
     for method in args.method.split(","):
         for ls in args.line_search.split(","):
             out = profile_steps(dp, ls, args.iters, trace_path=args.trace, method=method)
+            if out["device_busy_ms_per_iter"] is None:
+                raise RuntimeError("the profiler recorded no device event of the eager "
+                                   "steps: time with CUDA events instead")
             out.update(config=args.config, scenarios=args.scenarios, layout=layout, card=card)
             print(json.dumps(out), flush=True)
             outs.append(out)

@@ -60,7 +60,17 @@ through ``prepare``/``solve``:
   x) and of traffic_like x 128 (one stacked operator for two requests), and a
   ``BatchQueue`` over the mesh endpoint (``serve_mesh_queue``);
 * in a fresh process, the first chunk of the exact path against the second:
-  the kernel library's load and the first launches come before the clock.
+  the kernel library's load, the first launches and the capture of the
+  chunk's CUDA graph come before the clock.
+
+A solve on the card runs each chunk as a replay of its captured CUDA graph.
+Every graphed path (the solves of every family and layout, certify, the eq
+inners, serving and the queue) is run twice more on the same inputs, two
+chunks deep: graphed, from the cache, and with the eager runner swapped in
+(``eager_chunks``).  Their first chunks' per-step traces, their ends and
+their launches are held together, and each phase reports its captures and
+capture seconds, cache hits, replays, the programs' pool bytes, and both
+runs' wall ms per iteration and peak memory.  The mesh's chunks run eager.
 
 Every phase prints one JSON line; a failed phase raises and the script exits
 non-zero without the result line.  The last line is ``{"ok": true, "device":
@@ -83,6 +93,7 @@ memory (no stack frame, no spills).
 import argparse
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -161,7 +172,8 @@ def count_calls():
 
     def counted(name, plain):
         def call(xp, buckets):
-            CALLS[name] += any(x.is_cuda for x in xp)
+            # inside a graph capture the call is counted at each replay
+            cudalib.count(CALLS, name, int(any(x.is_cuda for x in xp)))
             return plain(xp, buckets)
         return call
 
@@ -185,6 +197,156 @@ def read_counts():
               f"{sys._getframe(1).f_code.co_name}: {counts[name]} launches of {name} for "
               f"{calls} calls (one launch a call)")
     return counts
+
+
+# ------------------------------------------------- captured chunks and eager
+
+# A solve on the card runs each chunk as a replay of its captured CUDA graph
+# (bsls_tpu_torch/solvers/graph.py).  Every graphed path is run again with
+# the eager runner on the same inputs: the first chunk's per-step objective
+# trace of every solve inside (each inner solve of an equality-constrained
+# loop) within GRAPH_TRACE_LIMIT relative (the same kernels on the same
+# inputs: equal bits are expected), the ends within GRAPH_END_LIMIT (the
+# card-against-CPU limit of cross_check: objective relative, x absolute),
+# and the same launches (a replay's against an eager chunk's).
+GRAPH_TRACE_LIMIT = 1e-6
+GRAPH_END_LIMIT = 1e-3
+# the twins run two chunks (two outers of one chunk on the eq path): the
+# first chunk's trace, a replay's launches and the state carried from one
+# replay into the next are what they hold
+GRAPH_TWIN_CHUNKS = 2
+
+
+@contextlib.contextmanager
+def eager_chunks():
+    """Every solve's chunk as the eager runner on the card, the yardstick:
+    ``chunk_program`` swapped where ``solve`` looks it up, without the
+    throwaway step (the process is warm), so that a run's launches are its
+    chunks' and the rest of the solve's, as a graph hit's are."""
+    from bsls_tpu_torch.solvers import base
+
+    graphed = base.chunk_program
+    base.chunk_program = (lambda dp, solver, opts, L_est, steps, state:
+                          base.make_chunk_runner(dp, solver, opts, L_est, steps))
+    try:
+        yield
+    finally:
+        base.chunk_program = graphed
+
+
+@contextlib.contextmanager
+def first_chunk_traces(out):
+    """Append the (S, chunk) objective trace of the first chunk of every
+    solve made inside to ``out``."""
+    from bsls_tpu_torch.solvers import base
+
+    loop = base.run_chunk_loop
+
+    def spy(*a, **k):
+        res = loop(*a, **k)
+        if res.traces_f:
+            out.append(res.traces_f[0].double().cpu().numpy())
+        return res
+
+    base.run_chunk_loop = spy
+    try:
+        yield
+    finally:
+        base.run_chunk_loop = loop
+
+
+def graph_twin(phase, solve, ends):
+    """``solve()`` with its chunks graphed and then eager, the counts and
+    the graph statistics set to 0 before each.  The graphed run must hit the
+    cache (the path's own run captured), so that neither run makes a
+    throwaway step.  ``ends(result)`` gives (objectives, x).  Returns the
+    comparison and both runs' wall seconds, chunk-loop ms per iteration and
+    peak memory."""
+    runs = {}
+    for mode in ("graph", "eager"):
+        traces = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        snap = graph_since()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(first_chunk_traces(traces))
+            if mode == "eager":
+                stack.enter_context(eager_chunks())
+            t0 = time.perf_counter()
+            res = solve()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        iters = max(int(res.iterations), 1)
+        runs[mode] = dict(res=res, traces=traces, secs=secs, counts=read_counts(),
+                          stats=graph_since(snap),
+                          peak=torch.cuda.max_memory_allocated(),
+                          loop_ms=1e3 * float(np.sum(res.chunk_times)) / max(
+                              int(np.asarray(res.chunk_iters)[-1]) if len(res.chunk_iters)
+                              else 1, 1),
+                          wall_ms=1e3 * secs / iters)
+    g, e = runs["graph"], runs["eager"]
+    check(g["stats"]["captures"] == 0 and g["stats"]["replays"] > 0,
+          f"{phase}: the graphed twin made {g['stats']['captures']} captures and "
+          f"{g['stats']['replays']} replays (a cache hit expected)")
+    check(e["stats"]["replays"] == 0 and e["stats"]["captures"] == 0,
+          f"{phase}: the eager twin replayed a graph")
+    check(len(g["traces"]) == len(e["traces"]) > 0,
+          f"{phase}: {len(g['traces'])} graphed and {len(e['traces'])} eager solves")
+    trace_rel = max(_rel_diff(a, b) for a, b in zip(g["traces"], e["traces"]))
+    bits = all(np.array_equal(a, b) for a, b in zip(g["traces"], e["traces"]))
+    check(trace_rel <= GRAPH_TRACE_LIMIT, f"{phase}: the graphed first chunk's trace differs "
+          f"from the eager one by {trace_rel:.2e} relative")
+    (fg, xg), (fe, xe) = ends(g["res"]), ends(e["res"])
+    obj_rel = _rel_diff(fg, fe)
+    x_abs = float(np.max(np.abs(np.asarray(xg, np.float64) - np.asarray(xe, np.float64))))
+    check(obj_rel <= GRAPH_END_LIMIT and x_abs <= GRAPH_END_LIMIT,
+          f"{phase}: graphed and eager ends differ: objective {obj_rel:.2e} relative, "
+          f"x {x_abs:.2e}")
+    check(g["counts"] == e["counts"], f"{phase}: launches graphed {g['counts']} against eager "
+          f"{e['counts']} (a replay launches what an eager chunk does)")
+    replays = g["stats"]["replays"]
+    return {"first_chunk_max_rel_diff": trace_rel, "first_chunk_bits_equal": bits,
+            "solves": len(g["traces"]), "end_objective_max_rel_diff": obj_rel,
+            "end_x_max_abs_diff": x_abs, "replays": replays,
+            "launches_per_replay": {k: v / replays for k, v in g["counts"].items()},
+            "graph_secs": g["secs"], "eager_secs": e["secs"],
+            "graph_wall_ms_per_iter": g["wall_ms"], "eager_wall_ms_per_iter": e["wall_ms"],
+            "graph_loop_ms_per_iter": g["loop_ms"], "eager_loop_ms_per_iter": e["loop_ms"],
+            "graph_peak_bytes": g["peak"], "eager_peak_bytes": e["peak"]}
+
+
+def solve_ends(res):
+    return np.atleast_1d(res.objective), res.x
+
+
+def _graph_profile(prof):
+    """The graph's figures of a ``profile_steps`` line, beside the eager ones."""
+    g = prof["graph"]
+    return {k: g[k] for k in ("wall_ms_per_iter", "event_ms_per_iter", "device_busy_ms_per_iter",
+                              "device_idle_share", "launches_per_iter", "profiler_saw_graph",
+                              "peak_bytes", "pool_bytes")}
+
+
+def graph_since(snap=None):
+    """The graph statistics since the snapshot ``snap`` (another
+    ``graph_since()``), and the programs cached now with their pools' bytes."""
+    now = bt.solvers.graph.graph_stats()
+    if snap is not None:
+        for k in ("captures", "capture_secs", "hits", "replays", "evictions"):
+            now[k] -= snap[k]
+    return now
+
+
+@contextlib.contextmanager
+def graph_report(phase):
+    """After the phase, a line of its captures (and their seconds), cache
+    hits, replays and evictions, and the programs cached at its end with
+    their pools' bytes."""
+    snap = graph_since()
+    t0 = time.perf_counter()
+    yield
+    emit(f"{phase}_graph", **graph_since(snap), phase_secs=time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------- phases 1-2
@@ -421,8 +583,9 @@ def inputs_in_turn(one_bytes):
 
 def capture_pava_inputs(dp, iters=40):
     """The tensors that a short ``pava`` solve of ``dp`` hands
-    ``isotonic.pava_blocks``, by bucket shape, in the order of the iterations.
-    The function is wrapped here for the capture only."""
+    ``isotonic.pava_blocks``, by bucket shape, in the order of the iterations
+    (its chunk run eagerly: a captured chunk calls the function once, at its
+    capture).  The function is wrapped here for the capture only."""
     seen = {}
     plain_fn = isotonic.pava_blocks
 
@@ -433,15 +596,14 @@ def capture_pava_inputs(dp, iters=40):
 
     isotonic.pava_blocks = spy
     try:
-        bt.solve(dp, method="pgd", line_search="pava", tol=0.0, max_iter=iters, chunk=iters)
+        with eager_chunks():  # each iteration through the wrapped function
+            bt.solve(dp, method="pgd", line_search="pava", tol=0.0, max_iter=iters, chunk=iters)
     finally:
         isotonic.pava_blocks = plain_fn
-    # one more per bucket: solve's throwaway warm-up step before its clock,
-    # from the same state as the first iteration
-    check(len(seen) == len(dp.buckets) and all(len(v) == iters + 1 for v in seen.values()),
+    check(len(seen) == len(dp.buckets) and all(len(v) == iters for v in seen.values()),
           f"capture: {[len(v) for v in seen.values()]} pava inputs for {len(dp.buckets)} buckets "
-          f"and {iters} iterations plus the warm-up step")
-    return {shape: v[1:] for shape, v in seen.items()}
+          f"and {iters} iterations")
+    return seen
 
 
 def pooling_share(vs, widths):
@@ -987,12 +1149,17 @@ def phase_solve(phase, prob, dp, line_search, max_iter, kernels, method="pgd", s
     family checked here descends by construction (apgd by its safeguard, the
     others by an exact step clipped to [0, 1]), so the objective must not
     rise between chunk ends."""
+    def run(iters=max_iter):
+        return bt.solve(dp, method=method, line_search=line_search, space=space, tol=0.0,
+                        max_iter=iters, chunk=chunk, lipschitz=lipschitz)
+
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    res = bt.solve(dp, method=method, line_search=line_search, space=space, tol=0.0,
-                   max_iter=max_iter, chunk=chunk, lipschitz=lipschitz)
+    snap = graph_since()
+    res = run()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    graph_stats = graph_since(snap)
 
     multi = dp.b.ndim == 2
     S, n_buckets = (dp.b.shape[0] if multi else 1), len(dp.buckets)
@@ -1030,7 +1197,11 @@ def phase_solve(phase, prob, dp, line_search, max_iter, kernels, method="pgd", s
          chunk_secs=[round(float(t), 4) for t in res.chunk_times],
          objective_s0=f32, objective_s0_f64=f64,
          objective_max=float(np.max(res.objective)),
-         launches=counts, buckets=n_buckets, peak_bytes=peak)
+         launches=counts, buckets=n_buckets, peak_bytes=peak,
+         captures=graph_stats["captures"], capture_secs=graph_stats["capture_secs"],
+         graph_pool_bytes=graph_stats["pool_bytes"][-1:],
+         graph_vs_eager=graph_twin(phase, lambda: run(min(max_iter, GRAPH_TWIN_CHUNKS * chunk)),
+                                   solve_ends))
     return counts
 
 
@@ -1124,7 +1295,8 @@ def phase_solve_banded(ctx, max_iter=500):
 def phase_solve_mega(ctx, max_iter=1000, chunk=100):
     """The fused chunk through ``solve``: the gate is set here and restored;
     one launch per chunk (and the warm-up's), and the trace of the eager path
-    of the same solve."""
+    of the same solve; the time of a step fused, as a graph replay and
+    eager."""
     prob = ctx["tiny_prob"]
     kw = dict(method="pgd", line_search="exact", tol=0.0, max_iter=max_iter, chunk=chunk,
               lipschitz=bt.solvers.power_lipschitz(ctx["tiny"]), device=DEV)
@@ -1139,7 +1311,9 @@ def phase_solve_mega(ctx, max_iter=1000, chunk=100):
         counts = read_counts()
         os.environ["BSLS_MEGA"] = "0"
         mega.use_mega.cache_clear()
-        eager = bt.solve(prob, **kw)
+        graphed = bt.solve(prob, **kw)
+        with eager_chunks():
+            eager = bt.solve(prob, **kw)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -1167,13 +1341,18 @@ def phase_solve_mega(ctx, max_iter=1000, chunk=100):
     check(abs(f64 - float(fused.objective)) <= 1e-4 * max(1.0, abs(f64)),
           f"solve_mega: device objective {float(fused.objective)} vs float64 {f64}")
     per_step = lambda r: 1e3 * float(np.sum(r.chunk_times[1:])) / (max_iter - chunk)
+    check(np.array_equal(graphed.trace_f[:chunk], eager.trace_f[:chunk])
+          or _rel_diff(graphed.trace_f[:chunk], eager.trace_f[:chunk]) <= GRAPH_TRACE_LIMIT,
+          "solve_mega: the graphed first chunk differs from the eager one")
     emit("solve_mega", iterations=fused.iterations, chunks=max_iter // chunk, launches=counts,
          max_rel_trace_diff=float(rel.max()), max_abs_x_diff=float(np.abs(fused.x - eager.x).max()),
          objective=float(fused.objective), objective_f64=f64,
-         fused_ms_per_step=per_step(fused), eager_ms_per_step=per_step(eager),
+         fused_ms_per_step=per_step(fused), graphed_ms_per_step=per_step(graphed),
+         eager_ms_per_step=per_step(eager),
          fused_iters_per_sec=fused.steady_iters_per_sec(),
+         graphed_iters_per_sec=graphed.steady_iters_per_sec(),
          eager_iters_per_sec=eager.steady_iters_per_sec())
-    return counts, per_step(eager)
+    return counts, per_step(eager), per_step(graphed)
 
 # ------------------------------------------- the other five solver families
 
@@ -1335,7 +1514,9 @@ def phase_certify(prob, dp, max_iter=400, certify=150):
     check(bool(np.all(g1 < g0)), "certify: the gap did not shrink in every scenario "
           f"({int(np.sum(g1 >= g0))} of {len(g0)} did not; the polish is all or nothing)")
     ratio = g1 / g0
-    emit("certify", scenarios=len(g0), iterations=max_iter, certify=certify,
+    twin = graph_twin("certify", lambda: bt.solve(dp, certify=certify, **{
+        **kw, "max_iter": GRAPH_TWIN_CHUNKS * kw["chunk"]}), solve_ends)
+    emit("certify", scenarios=len(g0), iterations=max_iter, certify=certify, graph_vs_eager=twin,
          gap_ratio_max=float(ratio.max()), gap_ratio_median=float(np.median(ratio)),
          scenarios_below_0_1=int(np.sum(ratio < 0.1)), gap_before_median=float(np.median(g0)),
          gap_after_median=float(np.median(g1)), max_rel_objective_change=float(np.max(f1 / f0 - 1)),
@@ -1476,6 +1657,9 @@ def phase_solve_banded_families(ctx, max_iter=200):
                   f"{rel[:, -1].max():.2e}")
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
+        twin = graph_twin(f"solve_banded_families_{method}", lambda: bt.solve(
+            dp, method=method, **{**kw, "max_iter": GRAPH_TWIN_CHUNKS * kw["chunk"]}),
+            solve_ends)
         past = np.nonzero(rel.max(0) > 5e-4)[0]
         out[method] = dict(one_step_rel_diff_by_chunk_end=steps,
                            max_rel_end_diff=float(rel[:, -1].max()),
@@ -1484,7 +1668,7 @@ def phase_solve_banded_families(ctx, max_iter=200):
                            objective_gather=np.asarray(rg.objective).tolist(),
                            aggregate_iters_per_sec_banded=4 * rb.steady_iters_per_sec(),
                            aggregate_iters_per_sec_gather=4 * rg.steady_iters_per_sec(),
-                           launches=counts)
+                           launches=counts, graph_vs_eager=twin)
     emit("solve_banded_families", scenarios=4, iterations=max_iter, **out)
     return total
 
@@ -1494,7 +1678,10 @@ def phase_solve_banded_families(ctx, max_iter=200):
 # blocks of width 2-12, A 100,000 x 69,989 with 454,722 nonzeros, a dense C of
 # 50 x 69,989, times 128 scenarios with their own targets d
 EQ_SCENARIOS = 128
-EQ_BUDGET = 2000  # total inner iterations of solve_eq
+# total inner iterations (three outers) of solve_eq, of its mesh twins and of
+# serve_eq's traffic_like requests: the reference runs 10,000, cut to the
+# script's time
+EQ_BUDGET = 1200
 EQ_INNER = 400  # at most this many per outer
 EQ_CROSS_ITERS = 100  # the first outer of the card-against-CPU check, S = 4
 EQ_PAVA_ITERS, EQ_PAVA_INNER = 400, 200  # solve_eq_pava and its mesh twin, S = 4
@@ -1603,6 +1790,7 @@ def phase_solve_eq(ctx):
     cache, rec = {}, OuterRecords()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    snap = graph_since()
     t0 = time.perf_counter()
     res = bt.solve_equality_constrained(
         prob, method="pgd", line_search="exact", eq_tol=1e-6, max_iter=EQ_BUDGET,
@@ -1610,6 +1798,10 @@ def phase_solve_eq(ctx):
     secs = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    graph = graph_since(snap)
+    # a new sqrt(rho), b and L every outer, one program for all of them
+    check(graph["captures"] == 1, f"solve_eq: {graph['captures']} captures for "
+          f"{len(rec.outer)} outers (one key)")
     (dp, rho_base, L_base, LC, *_), = cache.values()
     S, n = EQ_SCENARIOS, prob.partition.n_flat
     check(res.x.shape == (S, n) and res.eq_lam.shape == (S, prob.C.shape[0]),
@@ -1641,6 +1833,10 @@ def phase_solve_eq(ctx):
     # the step of the stacked operator under the profiler: idle share and
     # launches per inner step
     prof = profile_steps(dp, "exact", iters=20)
+    # two outers of the same loop graphed (the cached program) and eager
+    twin = graph_twin("solve_eq", lambda: bt.solve_equality_constrained(
+        prob, method="pgd", line_search="exact", eq_tol=1e-6, max_iter=GRAPH_TWIN_CHUNKS * 100,
+        inner_iters=100, chunk=100, op_cache=cache, device=DEV), solve_ends)
     outer = rec.outer
     ctx["eq_unsharded"] = {"outer": outer, "objective": res.objective, "x": res.x,
                            "viol": res.eq_violation, "iterations": res.iterations,
@@ -1669,6 +1865,9 @@ def phase_solve_eq(ctx):
          launches_per_inner_step=prof["launches_per_iter"],
          largest_device_items_ms_per_step=[[k["name"][:60], k["ms_per_iter"],
                                             k["launches_per_iter"]] for k in prof["kernels"][:8]],
+         graph_step_profile=_graph_profile(prof), captures=graph["captures"],
+         capture_secs=graph["capture_secs"], graph_replays=graph["replays"],
+         graph_pool_bytes=graph["pool_bytes"], graph_vs_eager=twin,
          rows_by_bucket=rows, rows_grouped=grouped, rows_max_err=err)
 
     # the card against the CPU, S = 4, one set of Lipschitz constants
@@ -1699,13 +1898,19 @@ def phase_solve_eq_pava(ctx, max_iter=EQ_PAVA_ITERS, inner=EQ_PAVA_INNER):
 
     prob4 = ctx["eq_prob4"]
     cache, rec = {}, OuterRecords()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    snap = graph_since()
     t0 = time.perf_counter()
     res = bt.solve_equality_constrained(prob4, method="pgd", line_search="pava",
                                         max_iter=max_iter, inner_iters=inner, chunk=100,
                                         op_cache=cache, metrics=rec, device=DEV)
     secs = time.perf_counter() - t0
     counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    graph = graph_since(snap)
+    check(graph["captures"] == 1, f"solve_eq_pava: {graph['captures']} captures for "
+          f"{len(rec.outer)} outers (one key)")
     (dp, rho_base, L_base, LC, *_), = cache.values()
     ctx["eq_pava_unsharded"] = {"outer": rec.outer, "objective": res.objective,
                                 "viol": res.eq_violation, "iterations": res.iterations,
@@ -1714,7 +1919,8 @@ def phase_solve_eq_pava(ctx, max_iter=EQ_PAVA_ITERS, inner=EQ_PAVA_INNER):
     check(np.isfinite(res.eq_violation) and bool(np.isfinite(res.objective).all()),
           "solve_eq_pava: non-finite result")
     # one launch a step for the four buckets (read_counts holds one a call),
-    # and at most one more an outer: each inner solve's warm-up step
+    # and at most one more an outer: the throwaway step of a capture (one for
+    # the whole loop: one key)
     check(res.iterations <= counts["pava_rows"] <= res.iterations + len(rec.outer),
           f"solve_eq_pava: pava_rows launched {counts['pava_rows']} times in "
           f"{res.iterations} inner iterations and {len(rec.outer)} outers")
@@ -1727,6 +1933,9 @@ def phase_solve_eq_pava(ctx, max_iter=EQ_PAVA_ITERS, inner=EQ_PAVA_INNER):
     # the z-space step of the stacked operator under the profiler
     prof = profile_steps(dp, "pava", iters=20)
     gathers = top_gather_ms(dp)
+    twin = graph_twin("solve_eq_pava", lambda: bt.solve_equality_constrained(
+        prob4, method="pgd", line_search="pava", max_iter=GRAPH_TWIN_CHUNKS * 100,
+        inner_iters=100, chunk=100, op_cache=cache, device=DEV), solve_ends)
     emit("solve_eq_pava", scenarios=4, iterations=res.iterations, stop_reason=res.stop_reason,
          eq_violation_worst=res.eq_violation, rho_end=res.eq_rho, L_z_base=L_base, L_z_C=LC,
          objective_max=float(np.max(res.objective)), secs=secs,
@@ -1740,6 +1949,9 @@ def phase_solve_eq_pava(ctx, max_iter=EQ_PAVA_ITERS, inner=EQ_PAVA_INNER):
          launches_per_inner_step=prof["launches_per_iter"],
          largest_device_items_ms_per_step=[[k["name"][:60], k["ms_per_iter"],
                                             k["launches_per_iter"]] for k in prof["kernels"][:8]],
+         graph_step_profile=_graph_profile(prof), captures=graph["captures"],
+         capture_secs=graph["capture_secs"], graph_replays=graph["replays"],
+         graph_pool_bytes=graph["pool_bytes"], peak_bytes=peak, graph_vs_eager=twin,
          top_gathers=gathers,
          rows_by_bucket=rows, rows_grouped=grouped, rows_by_bucket_s128=rows128,
          rows_grouped_s128=grouped128, rows_max_err=max(err, err128))
@@ -1837,11 +2049,15 @@ def phase_serve(prob, base):
     build_secs = time.perf_counter() - t0
     layout = "banded" if isinstance(ep._dp.A, DeviceBanded) else "gather"
     check(layout == "gather", f"serve: the endpoint took the {layout} layout")
+    snap = graph_since()
     t0 = time.perf_counter()
     ep.warmup(SCENARIOS)
     warmup_secs = time.perf_counter() - t0
+    warmup_captures = graph_since(snap)["captures"]
+    check(warmup_captures == 1, f"serve: the warm-up made {warmup_captures} captures")
     reqs = [np.asarray(bt.synthetic.with_scenarios(base, SCENARIOS, seed=s).b) for s in (2, 3, 4)]
     reset_counts()
+    snap = graph_since()
     results, walls = [], []
     for B in reqs:
         torch.cuda.synchronize()
@@ -1849,10 +2065,14 @@ def phase_serve(prob, base):
         results.append(ep.solve(B, tol=0.0, max_iter=SERVE_ITERS))
         walls.append(time.perf_counter() - t0)
     counts = read_counts()
+    graph = graph_since(snap)
+    check(graph["captures"] == 0, f"serve: {graph['captures']} captures on a warm endpoint")
     check(counts["proj_simplex_rows"] >= len(reqs) * SERVE_ITERS,
           f"serve: proj_simplex_rows launched {counts['proj_simplex_rows']} times")
     # what a request pays outside its chunk loop, piece by piece: the upload
-    # of b, the power iteration, the throwaway warm-up step
+    # of b, the power iteration, and the eager throwaway step that a request
+    # made before its chunks were captured (a warm endpoint's request makes
+    # none now)
     dp_b = ep._with_b(reqs[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1871,7 +2091,9 @@ def phase_serve(prob, base):
     warm_step_secs = time.perf_counter() - t0
     # each request against a direct solve of the same problem (its own
     # prepare, the same layout and Lipschitz estimate); the first is also
-    # the cold call: prepare included
+    # the cold call: prepare included.  Each captures a program on its own
+    # prepared problem, which goes with that problem.
+    cached_before = graph_since()["cached"]
     diffs, cold_secs = [], None
     for B, res in zip(reqs, results):
         check(res.x.shape == (SCENARIOS, prob.partition.n_flat), f"serve: x {res.x.shape}")
@@ -1885,10 +2107,18 @@ def phase_serve(prob, base):
         diffs.append(_rel_diff(res.objective, direct.objective))
     check(max(diffs) <= 1e-5, f"serve: per-scenario objectives differ from a direct solve by "
           f"{max(diffs):.2e} relative")
+    gc.collect()
+    cached_after = graph_since()["cached"]
+    check(cached_after <= cached_before, f"serve: {cached_after - cached_before} programs "
+          "outlived the direct solves' prepared problems")
     loop = [float(np.sum(r.chunk_times)) for r in results]
     outside = [w - lp for w, lp in zip(walls, loop)]
+    twin = graph_twin("serve", lambda: ep.solve(reqs[0], tol=0.0, max_iter=SERVE_ITERS),
+                      solve_ends)
     emit("serve", instance=f"medium_sparse(seed=0) x {SCENARIOS}", layout=layout,
-         endpoint_build_secs=build_secs, warmup_secs=warmup_secs, requests=len(reqs),
+         endpoint_build_secs=build_secs, warmup_secs=warmup_secs,
+         warmup_captures=warmup_captures, request_captures=graph["captures"],
+         request_replays=graph["replays"], graph_vs_eager=twin, requests=len(reqs),
          iterations=SERVE_ITERS, request_wall_secs=walls, chunk_loop_secs=loop,
          outside_chunk_loop_secs=outside,
          outside_share=[o / w for o, w in zip(outside, walls)],
@@ -1915,8 +2145,10 @@ def phase_serve_queue(prob, base, threads=8, per_thread=8, width=32, mesh=None):
     batch = bt.synthetic.with_scenarios(base, threads * per_thread, seed=5)
     B = np.asarray(batch.b)
     ep = bt.Endpoint(prob, method="pgd", line_search="exact", chunk=100, device=DEV, mesh=mesh)
+    snap = graph_since()
     for w in (8, width):  # the widths the queue will send, first launches before traffic
         ep.warmup(w)
+    warmup_captures = graph_since(snap)["captures"]
     q = bt.BatchQueue(ep, max_batch=width, max_wait_ms=20, tol=0.0, max_iter=SERVE_ITERS)
     out, lat, errors = [None] * len(B), [0.0] * len(B), []
 
@@ -1931,6 +2163,7 @@ def phase_serve_queue(prob, base, threads=8, per_thread=8, width=32, mesh=None):
             errors.append(exc)
 
     reset_counts()
+    snap = graph_since()
     workers = [threading.Thread(target=client, args=(k,)) for k in range(threads)]
     t0 = time.perf_counter()
     for w in workers:
@@ -1939,6 +2172,7 @@ def phase_serve_queue(prob, base, threads=8, per_thread=8, width=32, mesh=None):
         w.join(timeout=600)
     wall = time.perf_counter() - t0
     counts = read_counts()
+    traffic_graph = graph_since(snap)
     q.close(timeout=30)
     check(not q._worker.is_alive() and not any(w.is_alive() for w in workers),
           "serve_queue: a thread did not stop")
@@ -1955,6 +2189,10 @@ def phase_serve_queue(prob, base, threads=8, per_thread=8, width=32, mesh=None):
     diff = _rel_diff(got, ref.objective)
     check(diff <= 1e-4, f"serve_queue: answers differ from one batched solve by {diff:.2e}")
     check(all(r.x.shape == (prob.partition.n_flat,) for r in out), "serve_queue: x shape")
+    twin = None
+    if mesh is None:  # the worker's chunk, a batch of full width, graphed and eager
+        twin = graph_twin("serve_queue", lambda: ep.solve(B[:width], tol=0.0,
+                                                          max_iter=SERVE_ITERS), solve_ends)
     lat_s = np.sort(np.asarray(lat))
     emit("serve_queue" if mesh is None else "serve_mesh_queue", clients=threads,
          requests=len(B), max_batch=width, max_wait_ms=20,
@@ -1963,6 +2201,8 @@ def phase_serve_queue(prob, base, threads=8, per_thread=8, width=32, mesh=None):
          latency_p50_secs=float(np.percentile(lat_s, 50)),
          latency_p99_secs=float(np.percentile(lat_s, 99)), wall_secs=wall,
          requests_per_sec=len(B) / wall, max_rel_diff_to_batched=diff, launches=counts,
+         warmup_captures=warmup_captures, traffic_captures=traffic_graph["captures"],
+         traffic_replays=traffic_graph["replays"], graph_vs_eager=twin,
          phase_secs=time.perf_counter() - t_phase)
     return counts
 
@@ -2040,11 +2280,16 @@ def phase_serve_eq(ctx, perturb=0.02, target=1e-6):
         for k, B in enumerate((B1, B2)):
             inner.clear()
             reset_counts()
+            snap = graph_since()
             t0 = time.perf_counter()
             res = ep_big.solve(B, max_iter=EQ_BUDGET, inner_iters=EQ_INNER, eq_tol=1e-6,
                                sensitivity=False)
             secs = time.perf_counter() - t0
             c = read_counts()
+            graph = graph_since(snap)
+            # one program for every outer of both requests
+            check(graph["captures"] == (1 if k == 0 else 0),
+                  f"serve_eq: request {k + 1} made {graph['captures']} captures")
             for name in counts:
                 counts[name] += c[name]
             check(res.x.shape == (EQ_SCENARIOS, big.partition.n_flat), "serve_eq: x shape")
@@ -2057,9 +2302,20 @@ def phase_serve_eq(ctx, perturb=0.02, target=1e-6):
             rows.append({"outers": len(inner), "iterations": res.iterations, "secs": secs,
                          "solve_secs": sum(inner),
                          "eq_violation": res.eq_violation, "stop_reason": res.stop_reason,
-                         "proj_simplex_rows_launches": c["proj_simplex_rows"]})
+                         "proj_simplex_rows_launches": c["proj_simplex_rows"],
+                         "captures": graph["captures"], "capture_secs": graph["capture_secs"],
+                         "replays": graph["replays"]})
     finally:
         TL.prepare, TB.solve = real_prepare, real_solve
+    # two outers of a request graphed and eager, from the same start (the
+    # warm start of the last converged request is off for both)
+    ep_big.warm_start = False
+    try:
+        twin = graph_twin("serve_eq", lambda: ep_big.solve(
+            B1, max_iter=GRAPH_TWIN_CHUNKS * 100, inner_iters=100, eq_tol=1e-6,
+            sensitivity=False), solve_ends)
+    finally:
+        ep_big.warm_start = True
     # the float64 host objective of the (S, n) x: the AL loop computes it
     # once for the result (and for each outer's record when given a sink)
     t0 = time.perf_counter()
@@ -2077,7 +2333,8 @@ def phase_serve_eq(ctx, perturb=0.02, target=1e-6):
                               "request2_certificate": r2.refine_fw_gap,
                               "oracle_secs": oracle_secs},
          traffic_like_x128={"requests": rows, "prepares": prepares[0],
-                            "perturbation": 0.01, "host_objective_secs": objective_secs},
+                            "perturbation": 0.01, "host_objective_secs": objective_secs,
+                            "graph_vs_eager": twin},
          launches=counts, phase_secs=time.perf_counter() - t_phase)
     return counts
 
@@ -2266,7 +2523,7 @@ def phase_mesh_world1(ctx):
     check(rel <= MESH_WORLD1_RTOL, f"mesh_world1: mesh objective {rel:.2e} relative off the "
           f"unsharded one (limit {MESH_WORLD1_RTOL})")
     prof = profile_steps(dpm, "exact", iters=10)
-    prof_u = profile_steps(dp, "exact", iters=10)
+    prof_u = profile_steps(dp, "exact", iters=10, graph=False)  # its kernels only
     # kernels 1-2 at a rank's shard of the bucket: Bk / 2 rows, S / 2 scenarios
     bk = dpm.buckets[0]
     half = bk.mask.shape[0] // 2
@@ -2945,42 +3202,52 @@ def main():
     report = phase_kernels(ctx)
     if args.stop_after == "kernels":
         sys.exit(3)
-    launches = phase_solve("solve_exact", prob, dp, "exact", 200, ("proj_simplex_rows",))
+
+    def graphed(phase, fn, *a):
+        """``fn(*a)`` with a line of its captures, hits, replays and pools."""
+        with graph_report(phase):
+            return fn(*a)
+
+    launches = graphed("solve_exact", phase_solve, "solve_exact", prob, dp, "exact", 200,
+                       ("proj_simplex_rows",))
     report["proj_simplex_rows"]["launches"] = launches["proj_simplex_rows"]
-    launches = phase_solve("solve_pava", prob, dp, "pava", 200, ("pava_rows",))
+    launches = graphed("solve_pava", phase_solve, "solve_pava", prob, dp, "pava", 200,
+                       ("pava_rows",))
     report["pava_rows"]["launches"] = launches["pava_rows"]
-    phase_cross_check(base)
+    graphed("cross_check", phase_cross_check, base)
     phase_float64_refused(ctx, base)
-    launches = phase_solve_banded(ctx)
+    launches = graphed("solve_banded", phase_solve_banded, ctx)
     report["band_zmv"]["launches"] = launches["band_zmv"]
     report["band_grmv"]["launches"] = launches["band_grmv"]
-    launches, eager_ms = phase_solve_mega(ctx)
+    launches, eager_ms, graphed_ms = graphed("solve_mega", phase_solve_mega, ctx)
     report["pgd_chunk"]["launches"] = launches["pgd_chunk"]
     report["pgd_chunk"]["eager_solve_ms_per_step"] = eager_ms
+    report["pgd_chunk"]["graphed_solve_ms_per_step"] = graphed_ms
 
     # the other families, certify and refine add their launches to the rows
     # of the kernels they run
-    new_paths = [phase_solve_families(prob, dp)]
-    phase_cross_check_families(base)
-    new_paths.append(phase_certify(prob, dp))
-    new_paths.append(phase_refine(prob, dp))
-    new_paths.append(phase_refine_certified(base))
-    new_paths.append(phase_solve_banded_families(ctx))
+    new_paths = [graphed("solve_families", phase_solve_families, prob, dp)]
+    graphed("cross_check_families", phase_cross_check_families, base)
+    new_paths.append(graphed("certify", phase_certify, prob, dp))
+    new_paths.append(graphed("refine", phase_refine, prob, dp))
+    new_paths.append(graphed("refine_certified", phase_refine_certified, base))
+    new_paths.append(graphed("solve_banded_families", phase_solve_banded_families, ctx))
     # the equality-constrained path: kernel 1 in every inner solve, kernel 2
     # in the z-space ones
-    new_paths.append(phase_solve_eq(ctx))
-    new_paths.append(phase_solve_eq_pava(ctx))
-    new_paths.append(phase_solve_eq_traffic())
+    new_paths.append(graphed("solve_eq", phase_solve_eq, ctx))
+    new_paths.append(graphed("solve_eq_pava", phase_solve_eq_pava, ctx))
+    new_paths.append(graphed("solve_eq_traffic", phase_solve_eq_traffic))
     # serving and checkpoint/resume: kernel 1 in every request
-    new_paths.append(phase_serve(prob, base))
-    new_paths.append(phase_serve_queue(prob, base))
-    new_paths.append(phase_serve_eq(ctx))
-    new_paths.append(phase_checkpoint(prob, dp))
+    new_paths.append(graphed("serve", phase_serve, prob, base))
+    new_paths.append(graphed("serve_queue", phase_serve_queue, prob, base))
+    new_paths.append(graphed("serve_eq", phase_serve_eq, ctx))
+    new_paths.append(graphed("checkpoint", phase_checkpoint, prob, dp))
     # the mesh: config 4 at full width (world of one over NCCL, four ranks on
     # the card over gloo) and the dry run; kernels 1-4 at rank shard shapes
-    new_paths.extend(phase_mesh(ctx, report))
+    # (the mesh's chunks run eager; the unsharded twins are graphed)
+    new_paths.extend(graphed("mesh", phase_mesh, ctx, report))
     # serving on a mesh: both endpoint kinds and the queue over one
-    new_paths.append(phase_serve_mesh(ctx, prob, base))
+    new_paths.append(graphed("serve_mesh", phase_serve_mesh, ctx, prob, base))
     for name, err in ctx["eq_row_errs"].items():
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
     phase_chunk0()

@@ -113,8 +113,8 @@ def test_warm_start_device_problem_and_callbacks(tmp_path):
 
     with MetricsWriter(str(tmp_path / "m.jsonl")) as mw:
         warm = bt.solve(prob, tol=0.0, max_iter=50, chunk=50, x0=cold.x, device="cpu",
-                        callback=lambda it, st: seen.append((it, st.k)), metrics=mw)
-    assert seen == [(50, 50)]
+                        callback=lambda it, st: seen.append((it, st.k.tolist())), metrics=mw)
+    assert seen == [(50, [50] * 3)]
     assert (tmp_path / "m.jsonl").read_text().count('"kind": "chunk"') == 1
     assert np.all(warm.trace_f[:, 0] <= cold.trace_f[:, -1] * (1 + 1e-4))
     single = small_instance(tsyn, "dense")
