@@ -499,6 +499,7 @@ def solve_sharded(
         x=x, objective=f, gap=gap, iterations=it, converged=loop.converged,
         trace_f=trace_f, trace_gap=trace_gap, chunk_times=np.asarray(loop.chunk_times),
         chunk_iters=np.asarray(loop.chunk_iters), stop_reason=loop.stopper.reason,
+        phases={"chunks": float(sum(loop.chunk_times))}, counts={"chunks": len(loop.chunk_times)},
     )
     if refine > 0:
         # gather-and-polish: the result is already host-side; the host f64

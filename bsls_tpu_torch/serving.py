@@ -55,6 +55,7 @@ from .solvers.base import (
     DEFAULT_REFINE_ROUNDS, SolveResult, power_lipschitz, power_lipschitz_z, refine_polish, solve,
     uses_zspace,
 )
+from .utils.profiling import span
 
 __all__ = ["Endpoint", "BatchQueue"]
 
@@ -137,29 +138,35 @@ class Endpoint:
         x0: Optional[np.ndarray] = None,
         **kw,
     ) -> SolveResult:
-        """Solve against a new right-hand side (or (S, m) batch)."""
-        b = np.asarray(b)
-        if b.shape[-1] != self._m:
-            raise ValueError(f"b last dim {b.shape[-1]} != m={self._m}")
-        if self._eq:
-            np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
-            return self._solve_eq(np.asarray(b, np_dtype), tol, max_iter, x0, **kw)
-        # refine needs the host Problem (float64 anchor): the polish runs
-        # here, against this request's b, not inside solve(dp), which sees
-        # only the device problem
-        refine = int(kw.pop("refine", 0))
-        refine_tol = kw.pop("refine_tol", None)
-        if refine_tol is not None and refine <= 0:
-            refine = DEFAULT_REFINE_ROUNDS  # refine_tol alone must not skip the polish
-        if self.mesh is not None:
-            return self._solve_mesh(b, tol, max_iter, x0, refine, refine_tol, **kw)
-        dp = self._with_b(b)
-        res = solve(dp, method=self.method, line_search=self.line_search, tol=tol,
-                    max_iter=max_iter, chunk=self.chunk, dtype=self.dtype, x0=x0, **kw)
-        if refine > 0:
-            prob = replace(self._problem, b=np.asarray(b, np.float64))
-            res = refine_polish(prob, dp, res, rounds=refine, target_rel_gap=refine_tol)
-        return res
+        """Solve against a new right-hand side (or (S, m) batch).  The call
+        is the span ``bsls.request``; the result's ``phases`` and
+        ``counts`` say where its host time went (``utils/profiling.py``)."""
+        with span("request"):
+            b = np.asarray(b)
+            if b.shape[-1] != self._m:
+                raise ValueError(f"b last dim {b.shape[-1]} != m={self._m}")
+            if self._eq:
+                np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
+                return self._solve_eq(np.asarray(b, np_dtype), tol, max_iter, x0, **kw)
+            # refine needs the host Problem (float64 anchor): the polish runs
+            # here, against this request's b, not inside solve(dp), which
+            # sees only the device problem
+            refine = int(kw.pop("refine", 0))
+            refine_tol = kw.pop("refine_tol", None)
+            if refine_tol is not None and refine <= 0:
+                refine = DEFAULT_REFINE_ROUNDS  # refine_tol alone must not skip the polish
+            if self.mesh is not None:
+                return self._solve_mesh(b, tol, max_iter, x0, refine, refine_tol, **kw)
+            with span("upload") as up:
+                dp = self._with_b(b)
+            res = solve(dp, method=self.method, line_search=self.line_search, tol=tol,
+                        max_iter=max_iter, chunk=self.chunk, dtype=self.dtype, x0=x0, **kw)
+            res.phases = {"upload": up.secs, **res.phases}
+            if refine > 0:
+                prob = replace(self._problem, b=np.asarray(b, np.float64))
+                with span("refine"):
+                    res = refine_polish(prob, dp, res, rounds=refine, target_rel_gap=refine_tol)
+            return res
 
     def _solve_mesh(self, b, tol, max_iter, x0, refine, refine_tol, **kw) -> SolveResult:
         """A request on the mesh: this rank's scenarios of b uploaded into the
@@ -181,7 +188,8 @@ class Endpoint:
                             **kw)
         if refine > 0:
             prob = replace(self._problem, b=np.asarray(b, np.float64))
-            res = refine_polish(prob, None, res, rounds=refine, target_rel_gap=refine_tol)
+            with span("refine"):
+                res = refine_polish(prob, None, res, rounds=refine, target_rel_gap=refine_tol)
         return res
 
     def _solve_eq(self, b, tol, max_iter, x0, **kw) -> SolveResult:
@@ -200,8 +208,9 @@ class Endpoint:
             # on a mesh of several processes rank 0 walks and every rank
             # takes its answer: a rank that fell through alone to the AL
             # solve would wait in its collectives
-            fast = _on_rank0(self.mesh, lambda: solve_eq_sensitivity(
-                prob, warm["x"], rho=warm["rho"], eq_tol=kw.get("eq_tol", tol)))
+            with span("eq.sensitivity"):
+                fast = _on_rank0(self.mesh, lambda: solve_eq_sensitivity(
+                    prob, warm["x"], rho=warm["rho"], eq_tol=kw.get("eq_tol", tol)))
             if fast is not None:
                 self._eq_warm[b.shape[:-1]] = {"lam": fast.eq_lam, "rho": fast.eq_rho,
                                                "x": np.asarray(fast.x)}
@@ -259,7 +268,8 @@ def _slice_result(res: SolveResult, i: int) -> SolveResult:
     """Per-request view of a batched SolveResult (scenario i).  Beyond the
     reference's fields it keeps refine's seconds and certificate and the eq
     path's violation, penalty (the batch's) and multipliers (scenario i's),
-    so that a queued eq request can tell whether its constraints hold."""
+    so that a queued eq request can tell whether its constraints hold, and
+    copies of the batch's ``phases`` and ``counts``."""
     return SolveResult(
         x=np.asarray(res.x)[i],
         objective=float(np.asarray(res.objective)[i]),
@@ -276,6 +286,8 @@ def _slice_result(res: SolveResult, i: int) -> SolveResult:
         eq_violation=res.eq_violation,
         eq_lam=None if res.eq_lam is None else np.asarray(res.eq_lam)[i],
         eq_rho=res.eq_rho,
+        phases=dict(res.phases),
+        counts=dict(res.counts),
     )
 
 
@@ -294,6 +306,16 @@ class BatchQueue:
     CUDA device is per thread).  Pad scenarios are copies of the first
     request's b, so every lane converges at the same rate.  A failed batch
     sets its exception on every waiting future.
+
+    Each request's result adds to the batch's ``phases`` its own
+    ``queue.wait`` (seconds from its ``submit`` to its batch's solve) and to
+    its ``counts`` the batch's width (``batch``) and padded width
+    (``padded``); the queue counts ``batches_run``, ``requests_served`` and
+    ``padded_lanes``.  The worker's spans are ``bsls.queue.idle`` (waiting
+    for a batch's first request), ``bsls.queue.collect`` (gathering the rest)
+    and ``bsls.queue.batch`` (its solve and the fan-out of its results).  A
+    profiler started on another thread records them (and the batch's own
+    spans) only when it profiles every thread.
 
     Over a mesh endpoint of several processes every rank builds its queue,
     and a batch must be the same on every rank, yet it depends on when the
@@ -325,6 +347,7 @@ class BatchQueue:
         self._stop = threading.Event()
         self.batches_run = 0
         self.requests_served = 0
+        self.padded_lanes = 0
         # several processes: rank 0 decides, the others follow its messages
         self._ranks = _world(endpoint.mesh)
         self._leader = self._ranks == 1 or dist.get_rank() == 0
@@ -337,7 +360,7 @@ class BatchQueue:
             raise RuntimeError("BatchQueue over a mesh: submit requests on rank 0; the other "
                                "ranks' queues follow its batches")
         fut: Future = Future()
-        self._q.put((np.asarray(b, np.float32), fut))
+        self._q.put((np.asarray(b, np.float32), fut, time.perf_counter()))
         return fut
 
     def _send(self, width: int, S: int = 0, bs=None) -> None:
@@ -362,39 +385,46 @@ class BatchQueue:
         idle_since = time.monotonic()
         while not self._stop.is_set():
             try:
-                first = self._q.get(timeout=0.05)
+                with span("queue.idle"):
+                    first = self._q.get(timeout=0.05)
             except queue.Empty:
                 if time.monotonic() - idle_since >= self._IDLE_SECS:
                     self._send(self._IDLE)
                     idle_since = time.monotonic()
                 continue
-            batch = [first]
-            deadline = time.monotonic() + self.max_wait
-            while len(batch) < self.max_batch:
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    break
+            with span("queue.collect"):
+                batch = [first]
+                deadline = time.monotonic() + self.max_wait
+                while len(batch) < self.max_batch:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    try:
+                        batch.append(self._q.get(timeout=left))
+                    except queue.Empty:
+                        break
+            with span("queue.batch"):
+                bs = [b for b, _, _ in batch]
+                # pad to the next power of two with copies of the first request
+                S = len(bs)
+                S_pad = 1 << (S - 1).bit_length()
+                bs = bs + [bs[0]] * (S_pad - S)
                 try:
-                    batch.append(self._q.get(timeout=left))
-                except queue.Empty:
-                    break
-            bs = [b for b, _ in batch]
-            # pad to the next power of two with copies of the first request
-            S = len(bs)
-            S_pad = 1 << (S - 1).bit_length()
-            bs = bs + [bs[0]] * (S_pad - S)
-            try:
-                self._send(S_pad, S, bs)
-                res = self._solve_batch(bs)
-                results = [res] if S_pad == 1 else [_slice_result(res, i) for i in range(S)]
-                for (_, fut), r in zip(batch, results):
-                    fut.set_result(r)
-            except Exception as exc:  # propagate to every waiter
-                for _, fut in batch:
-                    if not fut.done():
-                        fut.set_exception(exc)
+                    self._send(S_pad, S, bs)
+                    t_solve = time.perf_counter()
+                    res = self._solve_batch(bs)
+                    results = [res] if S_pad == 1 else [_slice_result(res, i) for i in range(S)]
+                    for (_, fut, t_in), r in zip(batch, results):
+                        r.phases["queue.wait"] = t_solve - t_in
+                        r.counts.update(batch=S, padded=S_pad)
+                        fut.set_result(r)
+                except Exception as exc:  # propagate to every waiter
+                    for _, fut, _ in batch:
+                        if not fut.done():
+                            fut.set_exception(exc)
             self.batches_run += 1
             self.requests_served += S
+            self.padded_lanes += S_pad - S
             idle_since = time.monotonic()
         self._send(self._STOP)
 
@@ -422,6 +452,7 @@ class BatchQueue:
                 pass
             self.batches_run += 1
             self.requests_served += S
+            self.padded_lanes += width - S
 
     def close(self, timeout: float = 10.0):
         """Stop the worker (on rank 0 of a mesh: every rank's worker; on

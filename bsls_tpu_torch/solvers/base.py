@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -64,6 +64,7 @@ from ..ops import ztransform as Z
 from ..ops.projection import proj_blocks
 from ..ops.simplex import block_min
 from ..utils.checkpoint import latest_checkpoint, load_state, save_state
+from ..utils.profiling import span
 
 PAIRWISE = ("afw", "pairwise", "pairwise_fw")
 
@@ -116,6 +117,11 @@ class SolveResult:
     eq_violation: Optional[float] = None
     eq_lam: Optional[np.ndarray] = None
     eq_rho: Optional[float] = None
+    # host seconds by phase, from the request's ``bsls.*`` spans
+    # (utils/profiling.py::span), and its counts (chunks, graph captures;
+    # outers of an eq solve; a queued request's batch width and padded width)
+    phases: dict = field(default_factory=dict)
+    counts: dict = field(default_factory=dict)
 
     def steady_iters_per_sec(self, skip: int = 1) -> float:
         """Solver iterations/sec from the paired (chunk_iters, chunk_times)
@@ -399,8 +405,7 @@ def refine_polish(problem: Problem, dp, res: SolveResult, rounds: int = 3,
     Certified mode corrects with a float64 Jacobi-PCG on the host, which is
     what makes the certificate tight; ``BSLS_REFINE_HOST=1`` takes that
     path for plain refine too, and ``dp=None`` means there is no device
-    problem (host only).  ``BSLS_REFINE_TRACE=1`` prints a line per round,
-    ``BSLS_PCG_TRACE=1`` the host PCG's residual every 10 iterations.
+    problem (host only).  ``BSLS_REFINE_TRACE=1`` prints a line per round.
 
     Counterpart of ``bsls_tpu/solvers/base.py::refine_polish``: the host
     code is the reference's; the device CG is ``_polish_cg`` batched over S.
@@ -528,12 +533,8 @@ def refine_polish(problem: Problem, dp, res: SolveResult, rounds: int = 3,
             Pd = Z.copy()
             rz = np.einsum("sn,sn->s", R, Z)
             rz0 = rz.copy()
-            _trace = os.environ.get("BSLS_PCG_TRACE") == "1"
-            for _cg_k in range(cg_now):
-                _ratio = float(np.max(rz / np.maximum(rz0, 1e-300)))
-                if _trace and _cg_k % 10 == 0:
-                    print(f"    pcg it={_cg_k} max rz/rz0={_ratio:.3e}", flush=True)
-                if _ratio <= 1e-28:
+            for _ in range(cg_now):
+                if float(np.max(rz / np.maximum(rz0, 1e-300))) <= 1e-28:
                     break
                 HP = tproj(_rmm(_mm(Pd)))
                 den = np.einsum("sn,sn->s", Pd, HP)
@@ -602,6 +603,8 @@ def refine_polish(problem: Problem, dp, res: SolveResult, rounds: int = 3,
         stop_reason=res.stop_reason,
         refine_secs=time.perf_counter() - t_start,
         refine_fw_gap=cert,
+        phases=res.phases,
+        counts=res.counts,
     )
 
 
@@ -673,31 +676,32 @@ def run_chunk_loop(run, state, it: int, max_iter: int, chunk: int, tol: float, s
     stay on the device until the end.  ``after_chunk(it, chunks_done, state,
     f, rel_gap, secs)`` runs after each readback, before the stop decision.
     On a mesh every rank sees the same (2, S) stats and so stops at the same
-    chunk."""
+    chunk.  The loop is the span ``bsls.chunks`` and each chunk (its launch
+    and its readback) the span ``bsls.chunk``, whose seconds are the chunk's
+    ``chunk_times`` entry."""
     traces_f, traces_g, ctimes, citers = [], [], [], []
     converged = False
     stopper = StopTracker(tol, stop_rule)
     chunks_done = 0
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    while it < max_iter:
-        state, (tf, tg) = run(state)
-        it += chunk
-        chunks_done += 1
-        traces_f.append(tf)
-        traces_g.append(tg)
-        citers.append(it)
-        fg = readback(state)  # the one readback
-        t1 = time.perf_counter()
-        ctimes.append(t1 - t0)
-        t0 = t1
-        rel = fg[1] / np.maximum(1.0, np.abs(fg[0]))
-        if after_chunk is not None:
-            after_chunk(it, chunks_done, state, fg[0], rel, ctimes[-1])
-        if stopper.update(fg[0], rel):
-            converged = True
-            break
+    with span("chunks"):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        while it < max_iter:
+            with span("chunk") as one:
+                state, (tf, tg) = run(state)
+                fg = readback(state)  # the one readback
+            it += chunk
+            chunks_done += 1
+            traces_f.append(tf)
+            traces_g.append(tg)
+            citers.append(it)
+            ctimes.append(one.secs)
+            rel = fg[1] / np.maximum(1.0, np.abs(fg[0]))
+            if after_chunk is not None:
+                after_chunk(it, chunks_done, state, fg[0], rel, ctimes[-1])
+            if stopper.update(fg[0], rel):
+                converged = True
+                break
     return ChunkLoop(state, it, converged, stopper, traces_f, traces_g, ctimes, citers)
 
 
@@ -846,6 +850,11 @@ def solve(
         lbfgs_mem=lbfgs_mem,
     )
     multi = dp.b.ndim == 2
+    # host seconds of the phases between the syncs the solve makes anyway
+    # (the power iteration's readback, the warm-up's synchronise, each
+    # chunk's readback, the result's), and what it counted
+    phases: dict = {}
+    counts = {"chunks": 0, "captures": 0}
 
     if lipschitz is not None:
         L_est = float(lipschitz)
@@ -856,33 +865,36 @@ def solve(
             power_lipschitz_z if uses_zspace(method, line_search, space)
             else power_lipschitz
         )
-        L_est = power(dp)
+        with span("power", phases):
+            L_est = power(dp)
 
-    xp0 = None
-    if x0 is not None:
-        x0t = torch.as_tensor(np.asarray(x0), dtype=dp.b.dtype).to(dp.device)
-        xp0 = L.inject_user_flat(dp, x0t if multi else x0t[None])
-    state = solver.init(dp, L_est, opts, xp0=xp0)
+    with span("init", phases):
+        xp0 = None
+        if x0 is not None:
+            x0t = torch.as_tensor(np.asarray(x0), dtype=dp.b.dtype).to(dp.device)
+            xp0 = L.inject_user_flat(dp, x0t if multi else x0t[None])
+        state = solver.init(dp, L_est, opts, xp0=xp0)
 
-    # fused-chunk fast path (small dense single-RHS instances, opt-in; see
-    # solvers/mega.py for eligibility) — produces and consumes the same
-    # PGDState, so the chunk loop below is unchanged
-    from .mega import make_mega_runner
+        # fused-chunk fast path (small dense single-RHS instances, opt-in;
+        # see solvers/mega.py for eligibility) — produces and consumes the
+        # same PGDState, so the chunk loop below is unchanged
+        from .mega import make_mega_runner
 
-    mega_run = None if multi else make_mega_runner(dp, method, opts, L_est, chunk)
-    it = 0
-    if resume and checkpoint_path:
-        ck = latest_checkpoint(checkpoint_path)
-        if ck:
-            state, meta = load_state(ck, state)
-            it = int(meta.get("iteration", 0))
-    run = mega_run
-    if it < max_iter:
-        if mega_run is not None:
-            _warm_up(dp.device, lambda: mega_run(state))
-        else:
-            run = _warm_up(dp.device,
-                           lambda: chunk_program(dp, solver, opts, L_est, chunk, state))
+        mega_run = None if multi else make_mega_runner(dp, method, opts, L_est, chunk)
+        it = 0
+        if resume and checkpoint_path:
+            ck = latest_checkpoint(checkpoint_path)
+            if ck:
+                state, meta = load_state(ck, state)
+                it = int(meta.get("iteration", 0))
+        run = mega_run
+        if it < max_iter:
+            if mega_run is not None:
+                _warm_up(dp.device, lambda: mega_run(state))
+            else:
+                run = _warm_up(dp.device,
+                               lambda: chunk_program(dp, solver, opts, L_est, chunk, state))
+                counts["captures"] += getattr(run, "captures", 0)
 
     def after_chunk(it, chunks_done, st, f_last, rel, secs):
         if not multi:
@@ -899,6 +911,8 @@ def solve(
     loop = run_chunk_loop(run, state, it, max_iter, chunk, tol, stop_rule, dp.device,
                           lambda st: torch.stack([st.f, st.gap]).cpu().numpy(), after_chunk)
     state, it = loop.state, loop.iterations
+    phases["chunks"] = float(sum(loop.chunk_times))
+    counts["chunks"] = len(loop.chunk_times)
     if checkpoint_path and checkpoint_every:
         save_state(checkpoint_path, state, meta={"iteration": it}, keep=checkpoint_keep)
 
@@ -912,28 +926,33 @@ def solve(
         # one scenario that came out worse keeps every scenario's main state.
         from . import frank_wolfe as _fw
 
-        opts_c = SolveOptions(method="afw", line_search="exact", tol=0.0,
-                              max_iter=certify, chunk=certify)
-        state_c = _fw.init(dp, L_est, opts_c, xp0=state.xp)
-        state_c, _ = chunk_program(dp, _fw, opts_c, L_est, certify, state_c)(state_c)
-        f_c = state_c.f.cpu().numpy()
-        if bool(np.all(f_c <= state.f.cpu().numpy() + 1e-12)):
-            state = replace(state, xp=state_c.xp, r=state_c.r, f=state_c.f, gap=state_c.gap)
+        with span("certify"):
+            opts_c = SolveOptions(method="afw", line_search="exact", tol=0.0,
+                                  max_iter=certify, chunk=certify)
+            state_c = _fw.init(dp, L_est, opts_c, xp0=state.xp)
+            run_c = chunk_program(dp, _fw, opts_c, L_est, certify, state_c)
+            counts["captures"] += getattr(run_c, "captures", 0)
+            state_c, _ = run_c(state_c)
+            f_c = state_c.f.cpu().numpy()
+            if bool(np.all(f_c <= state.f.cpu().numpy() + 1e-12)):
+                state = replace(state, xp=state_c.xp, r=state_c.r, f=state_c.f,
+                                gap=state_c.gap)
 
-    if loop.traces_f:
-        trace_f = torch.cat(loop.traces_f, dim=1).cpu().numpy()
-        trace_gap = torch.cat(loop.traces_g, dim=1).cpu().numpy()
-    else:  # max_iter <= 0, or resumed at or past it: nothing ran
-        trace_f = trace_gap = np.zeros((state.f.shape[0], 0), np.float32)
-    # one final exact projection: guarantees feasibility of the returned x
-    # regardless of method (the z-space path can leave O(eps) negative
-    # entries after the z->x difference map)
-    xp = proj_blocks(state.xp, dp.buckets)
-    x = L.extract_user_flat(dp, xp).cpu().numpy()
-    f = state.f.cpu().numpy()
-    gap = state.gap.cpu().numpy()
-    if not multi:
-        x, f, gap, trace_f, trace_gap = x[0], f[0], gap[0], trace_f[0], trace_gap[0]
+    with span("result", phases):
+        if loop.traces_f:
+            trace_f = torch.cat(loop.traces_f, dim=1).cpu().numpy()
+            trace_gap = torch.cat(loop.traces_g, dim=1).cpu().numpy()
+        else:  # max_iter <= 0, or resumed at or past it: nothing ran
+            trace_f = trace_gap = np.zeros((state.f.shape[0], 0), np.float32)
+        # one final exact projection: guarantees feasibility of the returned
+        # x regardless of method (the z-space path can leave O(eps) negative
+        # entries after the z->x difference map)
+        xp = proj_blocks(state.xp, dp.buckets)
+        x = L.extract_user_flat(dp, xp).cpu().numpy()
+        f = state.f.cpu().numpy()
+        gap = state.gap.cpu().numpy()
+        if not multi:
+            x, f, gap, trace_f, trace_gap = x[0], f[0], gap[0], trace_f[0], trace_gap[0]
     res = SolveResult(
         x=x,
         objective=f,
@@ -945,7 +964,10 @@ def solve(
         chunk_times=np.asarray(loop.chunk_times),
         chunk_iters=np.asarray(loop.chunk_iters),
         stop_reason=loop.stopper.reason,
+        phases=phases,
+        counts=counts,
     )
     if refine > 0:
-        res = refine_polish(problem, dp, res, rounds=refine, target_rel_gap=refine_tol)
+        with span("refine"):
+            res = refine_polish(problem, dp, res, rounds=refine, target_rel_gap=refine_tol)
     return res

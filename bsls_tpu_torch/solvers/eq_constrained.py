@@ -47,6 +47,7 @@ import torch
 from ..models.problem import Problem, ScaledMatrix, VStackMatrix
 from ..ops import layout as L
 from ..utils.checkpoint import latest_checkpoint, load_state, save_state
+from ..utils.profiling import span
 
 __all__ = ["solve_equality_constrained", "solve_eq_sensitivity",
            "prox_bpp_polish", "eq_dual_bound", "eq_multiplier_polish"]
@@ -176,7 +177,14 @@ def solve_equality_constrained(
     rho after the update and ``inner_rho`` the inner solve used, inner
     iterations, objective, and the seconds of the inner solve and of the
     host multiplier update) on top of the inner solves' per-chunk records;
-    on a mesh, rank 0's only.
+    on a mesh, rank 0's only.  The record's float64 objective is the span
+    ``bsls.eq.record``, apart from the outer's host work ``bsls.eq.host``.
+
+    The result's ``phases`` holds the host seconds of ``eq.setup`` (casts,
+    rho0's column norms, the ``op_cache`` lookup, the build on a miss),
+    ``eq.upload`` and ``eq.host`` summed over the outers, ``eq.record`` (only
+    with ``metrics``), ``eq.report`` and the inner solves' phases summed;
+    ``counts`` the outers run and the inner solves' counts summed.
 
     ``refine=K`` runs K float64 AL finishing outers (``refine_polish`` on the
     stacked problem, then the multiplier update in float64; on a mesh the
@@ -216,34 +224,11 @@ def solve_equality_constrained(
         dev = L.resolve_device(device)
 
     C = problem.C
-    b = np.asarray(problem.b, dtype=np.float64)
-    multi = b.ndim == 2
-    S = b.shape[0] if multi else 1
-    p = C.shape[0]
-    d = np.asarray(problem.d, dtype=np.float64)
-    if multi and d.ndim == 1:
-        d = np.broadcast_to(d, (S, p))
-    if lam0 is not None:
-        lam = np.broadcast_to(
-            np.asarray(lam0, np.float64), (S, p) if multi else (p,)
-        ).copy()
-    else:
-        lam = np.zeros((S, p) if multi else p)
-
-    # scale rho by the ratio of squared column norms so the penalty term is
-    # commensurate with the data term from the first outer iteration; start
-    # an order of magnitude below the data term so early inners optimise the
-    # objective, and let rho grow as needed
-    a_scale = float(np.mean(L._col_norms_sq(problem.A)))
-    c_scale = float(np.mean(L._col_norms_sq(C))) or 1.0
-    rho = float(rho_init) if rho_init > 0 else 0.1 * float(rho0) * a_scale / c_scale
-
     n = problem.A.shape[1]
-    viol = np.inf
-    total_iters = 0
-    start_outer = 0
     rank0 = mesh is None or mesh.rank == 0
-    ck_like = {"lam": lam, "x": np.zeros((S, n) if multi else n)}
+    # host seconds by phase (the inner solves' summed in), and the outers run
+    phases: dict = {}
+    counts = {"outers": 0}
 
     def shard_info():
         """A mesh rank's checkpoint: the whole host state, every leaf whole."""
@@ -252,36 +237,6 @@ def solve_equality_constrained(
         return {"rank": dist.get_rank(), "world": dist.get_world_size(),
                 "mesh": dict(mesh.shape),
                 "leaves": [[[0] * v.ndim, list(v.shape)] for _, v in sorted(ck_like.items())]}
-
-    if resume and checkpoint_path:
-        if mesh is not None:
-            ck_state, meta = SH._resume(checkpoint_path, ck_like, shard_info())
-            ck_state = ck_state if meta else None  # {}: no checkpoint yet
-        else:
-            ck = latest_checkpoint(checkpoint_path)
-            ck_state, meta = load_state(ck, ck_like) if ck else (None, {})
-        if ck_state is not None:
-            lam, x0 = ck_state["lam"], ck_state["x"]
-            rho = float(meta.get("rho", rho))
-            viol = float(meta.get("viol", viol))
-            total_iters = int(meta.get("total_iters", 0))
-            start_outer = int(meta.get("iteration", 0))
-            # a checkpoint at the outer budget still gets one settling outer
-            outer_iters = max(outer_iters, start_outer + 1)
-
-    # z-space inners need the z-curvature; the analytic bound splits the
-    # same way there, since D^T (A^T A + rho C^T C) D does
-    power = power_lipschitz_z if uses_zspace(method, line_search) else power_lipschitz
-    if op_cache is None:
-        op_cache = {}
-    key = op_cache_key(problem, dtype, method, line_search, dev, mesh, shard_rows)
-    # an entry holds the A and C it was prepared from (and on a mesh the
-    # mesh): their ids stay taken while the entry lives, and an entry of
-    # other objects is not used
-    dp_cache, rho_base, L_base, LC, A_c, C_c = op_cache.get(key, (None,) * 6)
-    if (A_c is not problem.A or C_c is not problem.C
-            or (mesh is not None and dp_cache is not None and dp_cache[2] is not mesh)):
-        dp_cache = None
 
     def stacked_rhs(rho_now):
         sr_now = np.sqrt(rho_now)
@@ -320,57 +275,123 @@ def solve_equality_constrained(
         L_bot = power(dc_replace(dp, A=dp.A.bottom))
         return (dp if mesh is None else (dp, part, mesh)), L_top, L_bot
 
+    with span("eq.setup", phases):
+        b = np.asarray(problem.b, dtype=np.float64)
+        multi = b.ndim == 2
+        S = b.shape[0] if multi else 1
+        p = C.shape[0]
+        d = np.asarray(problem.d, dtype=np.float64)
+        if multi and d.ndim == 1:
+            d = np.broadcast_to(d, (S, p))
+        if lam0 is not None:
+            lam = np.broadcast_to(
+                np.asarray(lam0, np.float64), (S, p) if multi else (p,)
+            ).copy()
+        else:
+            lam = np.zeros((S, p) if multi else p)
+
+        # scale rho by the ratio of squared column norms so the penalty term
+        # is commensurate with the data term from the first outer iteration;
+        # start an order of magnitude below the data term so early inners
+        # optimise the objective, and let rho grow as needed
+        a_scale = float(np.mean(L._col_norms_sq(problem.A)))
+        c_scale = float(np.mean(L._col_norms_sq(C))) or 1.0
+        rho = float(rho_init) if rho_init > 0 else 0.1 * float(rho0) * a_scale / c_scale
+
+        viol = np.inf
+        total_iters = 0
+        start_outer = 0
+        ck_like = {"lam": lam, "x": np.zeros((S, n) if multi else n)}
+
+        if resume and checkpoint_path:
+            if mesh is not None:
+                ck_state, meta = SH._resume(checkpoint_path, ck_like, shard_info())
+                ck_state = ck_state if meta else None  # {}: no checkpoint yet
+            else:
+                ck = latest_checkpoint(checkpoint_path)
+                ck_state, meta = load_state(ck, ck_like) if ck else (None, {})
+            if ck_state is not None:
+                lam, x0 = ck_state["lam"], ck_state["x"]
+                rho = float(meta.get("rho", rho))
+                viol = float(meta.get("viol", viol))
+                total_iters = int(meta.get("total_iters", 0))
+                start_outer = int(meta.get("iteration", 0))
+                # a checkpoint at the outer budget still gets one settling outer
+                outer_iters = max(outer_iters, start_outer + 1)
+
+        # z-space inners need the z-curvature; the analytic bound splits the
+        # same way there, since D^T (A^T A + rho C^T C) D does
+        power = power_lipschitz_z if uses_zspace(method, line_search) else power_lipschitz
+        if op_cache is None:
+            op_cache = {}
+        key = op_cache_key(problem, dtype, method, line_search, dev, mesh, shard_rows)
+        # an entry holds the A and C it was prepared from (and on a mesh the
+        # mesh): their ids stay taken while the entry lives, and an entry of
+        # other objects is not used
+        dp_cache, rho_base, L_base, LC, A_c, C_c = op_cache.get(key, (None,) * 6)
+        if (A_c is not problem.A or C_c is not problem.C
+                or (mesh is not None and dp_cache is not None and dp_cache[2] is not mesh)):
+            dp_cache = None
+        if dp_cache is None and start_outer < outer_iters and total_iters < max_iter:
+            # a miss: the first outer's stacked operator, prepared at its rho
+            with span("eq.build"):
+                dp_cache, L_base, LC = build(*stacked_rhs(rho))
+            rho_base = rho
+            op_cache[key] = (dp_cache, rho_base, L_base, LC, problem.A, C)
+
     result = None
     ok_streak = 0
+    inner_phases: dict = {}
     for outer in range(start_outer, outer_iters):
         budget = max_iter - total_iters
         if budget <= 0:
             break
         this_inner = min(inner_iters, budget)
-        sr, b_stacked = stacked_rhs(rho)
-        x_prev = x0 if result is None else np.asarray(result.x)
-        if dp_cache is None:
-            dp_cache, L_base, LC = build(sr, b_stacked)
-            rho_base = rho
-            op_cache[key] = (dp_cache, rho_base, L_base, LC, problem.A, C)
-        inner = dict(method=method, tol=tol, max_iter=this_inner, chunk=chunk,
-                     line_search=line_search, step_size=step_size, dtype=dtype,
-                     x0=x_prev,  # warm start from the previous outer iterate
-                     lbfgs_mem=lbfgs_mem, metrics=metrics,
-                     lipschitz=L_base + max(0.0, rho - rho_base) * LC)
-        t_solve = time.perf_counter()
-        if mesh is None:
-            result = solve(on_device(dp_cache, sr, b_stacked), **inner)
-        else:
-            dp_sh, part_sh, _ = dp_cache
-            result = SH.solve_sharded((on_device(dp_sh, sr, b_stacked), part_sh, not multi),
-                                      mesh, **inner)
-        t_host = time.perf_counter()
-        total_iters += result.iterations
-        x = np.asarray(result.x, dtype=np.float64)
-        cx_d = _c_matvec(C, x) - d
-        new_viol = _violation(cx_d, d, p)
-        rho_inner = rho
-        lam = lam + rho * cx_d
-        if new_viol > 0.25 * viol and new_viol > eq_tol:
-            rho *= rho_growth
-        viol = new_viol
-        # stop only after two consecutive outers with constraints holding and
-        # the inner subproblem solved to optimality (the second pass lets the
-        # multiplier update settle the objective)
-        ok_streak = ok_streak + 1 if (viol <= eq_tol and result.converged) else 0
-        lam, rho, viol, ok_streak = _from_rank0(mesh, lam, rho, viol, ok_streak)
-        t_end = time.perf_counter()
-        if metrics is not None and rank0:
-            metrics.log("outer", outer=outer + 1, viol=viol, rho=rho, inner_rho=rho_inner,
-                        inner_iters=int(result.iterations),
-                        f=np.asarray(problem.objective_np(x)).tolist(),
-                        solve_secs=t_host - t_solve, host_secs=t_end - t_host)
-        if checkpoint_path and checkpoint_every and (outer + 1) % checkpoint_every == 0:
-            save_state(checkpoint_path, {"lam": lam, "x": x},
-                       meta={"iteration": outer + 1, "rho": rho, "viol": viol,
-                             "total_iters": total_iters},
-                       keep=checkpoint_keep, shard=None if mesh is None else shard_info())
+        with span("eq.outer") as outer_span:
+            with span("eq.upload", phases):
+                sr, b_stacked = stacked_rhs(rho)
+                dp_now = on_device(dp_cache if mesh is None else dp_cache[0], sr, b_stacked)
+            x_prev = x0 if result is None else np.asarray(result.x)
+            inner = dict(method=method, tol=tol, max_iter=this_inner, chunk=chunk,
+                         line_search=line_search, step_size=step_size, dtype=dtype,
+                         x0=x_prev,  # warm start from the previous outer iterate
+                         lbfgs_mem=lbfgs_mem, metrics=metrics,
+                         lipschitz=L_base + max(0.0, rho - rho_base) * LC)
+            if mesh is None:
+                result = solve(dp_now, **inner)
+            else:
+                result = SH.solve_sharded((dp_now, dp_cache[1], not multi), mesh, **inner)
+            for k, v in result.phases.items():
+                inner_phases[k] = inner_phases.get(k, 0.0) + v
+            for k, v in result.counts.items():
+                counts[k] = counts.get(k, 0) + v
+            counts["outers"] += 1
+            with span("eq.host", phases) as host:
+                total_iters += result.iterations
+                x = np.asarray(result.x, dtype=np.float64)
+                cx_d = _c_matvec(C, x) - d
+                new_viol = _violation(cx_d, d, p)
+                rho_inner = rho
+                lam = lam + rho * cx_d
+                if new_viol > 0.25 * viol and new_viol > eq_tol:
+                    rho *= rho_growth
+                viol = new_viol
+                # stop only after two consecutive outers with constraints
+                # holding and the inner subproblem solved to optimality (the
+                # second pass lets the multiplier update settle the objective)
+                ok_streak = ok_streak + 1 if (viol <= eq_tol and result.converged) else 0
+                lam, rho, viol, ok_streak = _from_rank0(mesh, lam, rho, viol, ok_streak)
+            if metrics is not None and rank0:
+                with span("eq.record", phases):
+                    metrics.log("outer", outer=outer + 1, viol=viol, rho=rho,
+                                inner_rho=rho_inner, inner_iters=int(result.iterations),
+                                f=np.asarray(problem.objective_np(x)).tolist(),
+                                solve_secs=host.t0 - outer_span.t0, host_secs=host.secs)
+            if checkpoint_path and checkpoint_every and (outer + 1) % checkpoint_every == 0:
+                save_state(checkpoint_path, {"lam": lam, "x": x},
+                           meta={"iteration": outer + 1, "rho": rho, "viol": viol,
+                                 "total_iters": total_iters},
+                           keep=checkpoint_keep, shard=None if mesh is None else shard_info())
         if ok_streak >= 2:
             break
     if result is None:
@@ -465,19 +486,22 @@ def solve_equality_constrained(
             refine_secs=result.refine_secs + (time.perf_counter() - t_rt))
         result.refine_fw_gap = float(bound)
 
-    # report the ORIGINAL objective (not the augmented one)
-    x = np.asarray(result.x, np.float64)
-    result.objective = problem.objective_np(x)
-    result.iterations = total_iters
-    result.eq_violation = viol
-    result.eq_lam = lam
-    result.eq_rho = rho
-    result.converged = bool(result.converged and viol <= eq_tol)
-    if (not result.converged and total_iters >= max_iter
-            and result.stop_reason != "budget_exhausted"):
-        # make budget-limited terminations visible: converged=False alone
-        # does not say WHY
-        result.stop_reason = "budget_exhausted"
+    with span("eq.report", phases):
+        # report the ORIGINAL objective (not the augmented one)
+        x = np.asarray(result.x, np.float64)
+        result.objective = problem.objective_np(x)
+        result.iterations = total_iters
+        result.eq_violation = viol
+        result.eq_lam = lam
+        result.eq_rho = rho
+        result.converged = bool(result.converged and viol <= eq_tol)
+        if (not result.converged and total_iters >= max_iter
+                and result.stop_reason != "budget_exhausted"):
+            # make budget-limited terminations visible: converged=False
+            # alone does not say WHY
+            result.stop_reason = "budget_exhausted"
+    result.phases = {**phases, **inner_phases}
+    result.counts = counts
     return result
 
 

@@ -43,7 +43,6 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 import weakref
 from collections import OrderedDict
 
@@ -51,6 +50,7 @@ import torch
 
 from ..ops import cudalib
 from ..ops.layout import DeviceVStack
+from ..utils.profiling import span
 from .base import lipschitz_tensor, make_chunk_runner
 
 __all__ = ["GRAPH_CACHE_MAX", "ChunkProgram", "ProgramCache", "chunk_key", "problem_inputs",
@@ -305,7 +305,7 @@ class ProgramCache:
     def get(self, key, tensors, make):
         """The value of ``key`` while ``tensors`` are the ones it was made
         with; else ``make()``, cached (``make`` runs under the cache's
-        lock, so one key is captured once)."""
+        lock, so one key is captured once, in the span ``bsls.graph.capture``)."""
         with self._lock:
             self._purge()
             entry = self._entries.get(key)
@@ -316,10 +316,10 @@ class ProgramCache:
                 self._entries.move_to_end(key)
                 self.stats["hits"] += 1
                 return entry.value
-            t0 = time.perf_counter()
-            value = make()
+            with span("graph.capture") as made:
+                value = make()
             self.stats["captures"] += 1
-            self.stats["capture_secs"] += time.perf_counter() - t0
+            self.stats["capture_secs"] += made.secs
             while len(self._entries) >= self.max_size:
                 self._drop(next(iter(self._entries)))
             self._entries[key] = _Entry(value, tensors, self._dead.append)
@@ -348,14 +348,16 @@ def graph_runner(dp, solver, opts, L_est, steps: int, state):
     """run(state) -> (state, (trace_f, trace_gap)): the chunk of ``steps``
     steps as the cached program of its key (captured now on a miss; a hit
     launches nothing here), replayed once a call with ``dp``'s ``b`` and
-    scales and ``L_est``.  CUDA tensors only."""
+    scales and ``L_est``.  ``run.captures`` is 1 when this call captured
+    it, else 0.  CUDA tensors only."""
     if dp.device.type != "cuda" or dp.sharded:
         raise ValueError("graph_runner: an unsharded problem on a CUDA device only")
     key = chunk_key(opts, steps, dp, state)
     tensors: list = []
     _operator(dp, {id(t) for t in problem_inputs(dp)}, tensors)
-    program = _PROGRAMS.get(key, tensors,
-                            lambda: _capture(dp, solver, opts, L_est, steps, state))
+    made = []
+    program = _PROGRAMS.get(key, tensors, lambda: made.append(1) or _capture(
+        dp, solver, opts, L_est, steps, state))
 
     def run(st):
         out = program.run(dp, st, L_est)
@@ -364,4 +366,5 @@ def graph_runner(dp, solver, opts, L_est, steps: int, state):
         return out
 
     run.program = program
+    run.captures = len(made)
     return run

@@ -1,8 +1,15 @@
-"""Profiling: a trace of any block (``trace``), and where a solver
-iteration spends the device's time (``profile_steps`` and the command below).
+"""Profiling: the program's named spans (``span``), a trace of any block
+(``trace``), and where a solver iteration spends the device's time
+(``profile_steps`` and the command below).
 
     with trace("prof/"):              # the CLI's --profile-dir
         bt.solve(prob)
+
+Every request opens spans named ``bsls.<phase>`` (``Endpoint.solve``'s
+upload, the power iteration, the chunk loop and each chunk, the result, the
+eq loop's outers and host work, ``BatchQueue``'s waits): a profiler running
+around the call shows them on its host timeline, on the clock of its device
+events, and the result's ``phases`` holds their host seconds.
 
     python -m bsls_tpu_torch.utils.profiling --config medium --scenarios 128 \
         --line-search exact,pava --iters 30 [--trace trace.json]
@@ -35,6 +42,35 @@ import time
 from typing import Iterator, Optional
 
 import torch
+
+
+class span:
+    """``with span(name, phases):`` marks the block as ``bsls.<name>`` on
+    the host timeline of any ``torch.profiler`` session recording this
+    thread, and adds its host seconds (``time.perf_counter``) to
+    ``phases[name]`` when a dict is given; ``secs`` and ``t0`` hold them
+    after the block.  It synchronises nothing: a phase ends on the device
+    only where the block itself waits for the device (a readback, a
+    synchronise, a pageable upload).  With no profiler running it costs one
+    ``record_function`` enter and exit."""
+
+    __slots__ = ("name", "phases", "t0", "secs", "_rf")
+
+    def __init__(self, name: str, phases: Optional[dict] = None):
+        self.name, self.phases = name, phases
+        self.t0 = self.secs = 0.0
+
+    def __enter__(self) -> "span":
+        self._rf = torch.profiler.record_function(f"bsls.{self.name}")
+        self._rf.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.secs = time.perf_counter() - self.t0
+        self._rf.__exit__(*exc)
+        if self.phases is not None:
+            self.phases[self.name] = self.phases.get(self.name, 0.0) + self.secs
 
 
 @contextlib.contextmanager
@@ -73,7 +109,8 @@ def _profile(run, iters: int, trace_path=None) -> dict:
 
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # a span's shadow on the device's timeline is no kernel
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
             continue
         spans.append((e.time_range.start, e.time_range.end))
         rec = by_name.setdefault(e.name, [0, 0.0])

@@ -1,0 +1,9 @@
+"""Mean milliseconds of a request's ``result`` phase, from the program's
+span ``bsls.result`` (its result's ``phases["result"]``), over the requests
+completed in the window."""
+from harness.phases import mean_ms
+from harness.stats import completed_in_window
+
+
+def read(run):
+    return mean_ms(completed_in_window(run["requests"], run["window"]), "result")

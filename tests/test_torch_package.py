@@ -358,6 +358,7 @@ def test_kernel_library_load_and_first_launch_come_before_the_clock(monkeypatch)
     import bsls_tpu_torch as bt
     from bsls_tpu_torch.ops import cudalib
     from bsls_tpu_torch.solvers import base as TB
+    from bsls_tpu_torch.utils import profiling as P
 
     events = []
 
@@ -366,19 +367,28 @@ def test_kernel_library_load_and_first_launch_come_before_the_clock(monkeypatch)
             events.append("clock")
             return time.perf_counter()
 
-    real_warm = TB._warm_up
+    real_warm, real_span = TB._warm_up, TB.span
 
     def warm(device, first_launch):
         events.append("warm")
         return real_warm(device, first_launch)
 
-    monkeypatch.setattr(TB, "time", Clock())
+    def span(name, phases=None):
+        events.append(name)
+        return real_span(name, phases)
+
+    # the chunk clock is the loop's span and one span a chunk
+    # (utils/profiling.py), each reading the clock as it opens and closes
+    monkeypatch.setattr(P, "time", Clock())
+    monkeypatch.setattr(TB, "span", span)
     monkeypatch.setattr(TB, "_warm_up", warm)
     prob = bt.synthetic.tiny_dense(num_blocks=4, dim=3, m=10)
     res = bt.solve(prob, device="cpu", tol=0.0, max_iter=20, chunk=10)
-    assert events[0] == "warm" and events.count("warm") == 1
-    assert events.count("clock") == 1 + len(res.chunk_times)
-    monkeypatch.setattr(TB, "time", time)
+    assert events.count("warm") == 1 and events.index("warm") < events.index("chunks")
+    loop = events[events.index("chunks"):events.index("result")]
+    assert loop.count("chunk") == len(res.chunk_times)
+    assert loop.count("clock") == 2 * (1 + len(res.chunk_times))
+    monkeypatch.setattr(P, "time", time)
 
     # the CUDA branch: load, then the first launch, then a synchronize
     calls = []
