@@ -1,6 +1,6 @@
 from . import (
-    banded, chunkkernel, cudalib, isotonic, layout, pagekernels, projection, quadratic,
-    rowkernels, simplex, ztransform,
+    banded, chunkkernel, cudalib, ellkernels, isotonic, layout, pagekernels, projection,
+    quadratic, rowkernels, simplex, ztransform,
 )
 from .banded import DeviceBanded
 from .chunkkernel import pgd_chunk
@@ -33,6 +33,7 @@ __all__ = [
     "banded",
     "chunkkernel",
     "cudalib",
+    "ellkernels",
     "pagekernels",
     "DeviceBanded",
     "band_grmv",

@@ -4,9 +4,10 @@ The sources are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per
 source, all started together, then one link) into one shared library with a
 plain C interface, at first use, into ``csrc/_build/``; the library is loaded
 with ``ctypes``.  Nothing happens at import.  The wrapper modules
-(``rowkernels``, ``pagekernels``, ``chunkkernel``) declare the argument types
-of their own functions, pass pointers from ``tensor.data_ptr()`` and the
-stream of ``torch.cuda.current_stream()``, and record every launch here.
+(``rowkernels``, ``pagekernels``, ``chunkkernel``, ``ellkernels``) declare the
+argument types of their own functions, pass pointers from
+``tensor.data_ptr()`` and the stream of ``torch.cuda.current_stream()``, and
+record every launch here.
 
 A launch made while a thread captures a CUDA graph (``recording``) runs
 only when the graph is replayed: it is counted into the capture's record,
@@ -29,7 +30,8 @@ __all__ = ["build_library", "load", "launched", "launch_counts", "reset_launch_c
            "count", "recording", "add_record"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-_SOURCES = ("proj_simplex_rows.cu", "pava_rows.cu", "band_pages.cu", "pgd_chunk.cu")
+_SOURCES = ("proj_simplex_rows.cu", "pava_rows.cu", "band_pages.cu", "pgd_chunk.cu",
+            "ell_products.cu")
 _HEADERS = ("rows_common.cuh", "proj_device.cuh")
 _BUILD_DIR = os.path.join(_CSRC, "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libbsls_kernels.so")
@@ -39,7 +41,7 @@ _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _lock = threading.Lock()
 _lib = None
 _LAUNCHES = {"proj_simplex_rows": 0, "pava_rows": 0, "band_zmv": 0, "band_grmv": 0,
-             "pgd_chunk": 0}
+             "pgd_chunk": 0, "ell_gather_dot": 0}
 
 
 def launch_counts() -> dict:

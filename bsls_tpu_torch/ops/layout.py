@@ -50,6 +50,7 @@ import torch.distributed as dist
 
 from ..models.partition import BlockPartition
 from ..models.problem import DenseMatrix, EllMatrix, Problem, ScaledMatrix, VStackMatrix
+from . import ellkernels
 from .banded import PAGE, DeviceBanded, banded_matvec, banded_rmatvec, build_banded_split
 
 __all__ = [
@@ -85,14 +86,15 @@ __all__ = [
 
 def check_dtype(dtype, device) -> None:
     """The CUDA kernels (``proj_simplex_rows``, ``pava_rows``,
-    ``band_zmv``/``band_grmv``, ``pgd_chunk``) take float32 only, so a CUDA
-    device takes no other dtype: refused here, from the device's type alone,
-    before any upload or CUDA call.  Every other device takes any dtype."""
+    ``band_zmv``/``band_grmv``, ``pgd_chunk``, ``ell_gather_dot``) take
+    float32 only, so a CUDA device takes no other dtype: refused here, from
+    the device's type alone, before any upload or CUDA call.  Every other
+    device takes any dtype."""
     if torch.device(device).type == "cuda" and dtype != torch.float32:
         raise ValueError(
             f"dtype={dtype} on a CUDA device: the CUDA kernels proj_simplex_rows, pava_rows, "
-            "band_zmv/band_grmv and pgd_chunk take float32 only; pass dtype=torch.float32 "
-            "(the default) or device='cpu'")
+            "band_zmv/band_grmv, pgd_chunk and ell_gather_dot take float32 only; pass "
+            "dtype=torch.float32 (the default) or device='cpu'")
 
 
 def resolve_device(device) -> torch.device:
@@ -989,13 +991,41 @@ def _batched(fn, vec: torch.Tensor) -> torch.Tensor:
     return fn(vec.t().contiguous()).t().contiguous()
 
 
+def _ell_product_plain(cols, vals, vec: torch.Tensor, zeros: int = 0, rank=None) -> torch.Tensor:
+    """The plain version of ``_ell_product``, on any device: a gather
+    product a group over the (n, S) transpose, a cat, the rank gather."""
+    def run(vt):
+        parts = [_gather_dot_t(v, c, vt) for c, v in zip(cols, vals)]
+        if zeros:
+            parts = [vt.new_zeros((zeros, vt.shape[1]))] + parts
+        out = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return out if rank is None else out.index_select(0, rank)
+
+    return _batched(run, vec)
+
+
+def _ell_product(cols, vals, vec: torch.Tensor, zeros: int = 0, rank=None) -> torch.Tensor:
+    """One ELL product of ``vec`` ((n,) or (S, n)): the groups ``(cols[i],
+    vals[i])`` give the rows in sorted order after ``zeros`` zero rows, and
+    ``rank`` (if given) maps each output row to its sorted row.  Returns
+    (rows,) or (S, rows).  A CUDA tensor takes one launch of
+    ``ellkernels.ell_gather_dot`` over the (n, S) transpose (every group at
+    once, the result in (S, rows)); a CPU tensor the plain version."""
+    if not vec.is_cuda:
+        return _ell_product_plain(cols, vals, vec, zeros, rank)
+    vt = (vec[:, None] if vec.ndim == 1 else vec.t()).contiguous()
+    out = ellkernels.ell_gather_dot(cols, vals, vt, zeros, rank)
+    return out[0] if vec.ndim == 1 else out
+
+
 def gather_dot(vals: torch.Tensor, idx: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     """sum(vals * vec[..., idx], axis=-1) for (rows, k) vals/idx and ``vec``
     of shape (n,) or (S, n); returns (rows,) or (S, rows).
 
     The batched form gathers from the transposed (n, S) vector and walks the
-    rows in segments that bound the (rows, k, S) temporary."""
-    return _batched(lambda vt: _gather_dot_t(vals, idx, vt), vec)
+    rows in segments that bound the (rows, k, S) temporary (on the CPU; on
+    the card it is one kernel launch)."""
+    return _ell_product((idx,), (vals,), vec)
 
 
 def matvec(A: DeviceMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -1011,13 +1041,9 @@ def matvec(A: DeviceMatrix, x: torch.Tensor) -> torch.Tensor:
     if isinstance(A.mv_cols, tuple):
         # row-nnz-bucketed: per-width partials concatenate contiguously in
         # the (nnz-sorted) permuted row order — no scatter, minimal rows
-        def run(xt):
-            parts = [_gather_dot_t(v, c, xt) for c, v in zip(A.mv_cols, A.mv_vals)]
-            return parts[0] if len(parts) == 1 else torch.cat(parts)
-
-        return _batched(run, x)
+        return _ell_product(A.mv_cols, A.mv_vals, x)
     if A.mv_cols is not None:
-        return _batched(lambda xt: _gather_dot_t(A.mv_vals[0], A.mv_cols[0], xt), x)
+        return _ell_product((A.mv_cols[0],), (A.mv_vals[0],), x)
     # no row copy (a row wider than ROW_ELL_MAX_K): scatter-add fallback
     contrib = A.vals * x[..., :, None]  # (..., n, k)
     out = torch.zeros(*x.shape[:-1], A.num_rows, dtype=contrib.dtype, device=x.device)
@@ -1039,16 +1065,9 @@ def rmatvec(A: DeviceMatrix, r: torch.Tensor) -> torch.Tensor:
                 + A.bottom_scale * rmatvec(A.bottom, r[..., A.split:]))
     if A.rt_rows is not None:
         # col-nnz-bucketed: gather only real nonzeros (grouped widths),
-        # zero-nnz columns emitted directly, one rank gather to PF order
-        def run(rt):
-            parts = [_gather_dot_t(v, rw, rt) for rw, v in zip(A.rt_rows, A.rt_vals)]
-            if A.rt_zeros:
-                parts = [rt.new_zeros((A.rt_zeros, rt.shape[1]))] + parts
-            g_sorted = parts[0] if len(parts) == 1 else torch.cat(parts)
-            return g_sorted.index_select(0, A.rt_inv)
-
-        return _batched(run, r)
-    return _batched(lambda rt: _gather_dot_t(A.vals, A.rows, rt), r)
+        # zero-nnz columns emitted directly, the rank map to PF order
+        return _ell_product(A.rt_rows, A.rt_vals, r, A.rt_zeros, A.rt_inv)
+    return _ell_product((A.rows,), (A.vals,), r)
 
 
 def _psum(v: torch.Tensor, group) -> torch.Tensor:

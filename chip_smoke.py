@@ -86,9 +86,15 @@ launch each.  ``pava_rows`` is also held and timed on the inputs that a
 short pava solve of medium x 128 hands it (captured before the kernels
 phase), with the share of rows that pool, and timed on (128, 1003, w) rows
 at a sweep of widths.  A float64 solve with the card as its device must be
-refused before anything is uploaded.  With ``--ptxas`` the build phase fails
-unless both row kernels (every form, inlined) keep everything out of local
-memory (no stack frame, no spills).
+refused before anything is uploaded.  The ELL product kernel
+(``ell_gather_dot``) is held against the plain chain it replaced at S = 1,
+32 and 128 on medium's row and column groups, the eq path's stacked operator
+and a column-sharded local ELL, and on eleven groups (two launches), then
+timed at medium's two products beside its bytes bound, the plain chain and
+``torch.sparse.mm`` over a CSR copy.  With ``--ptxas`` the build phase fails
+unless both row kernels (every form, inlined) and every instantiation of the
+ELL product kernel keep everything out of local memory (no stack frame, no
+spills).
 """
 import argparse
 import contextlib
@@ -111,7 +117,9 @@ if not torch.cuda.is_available():
 
 import bsls_tpu_torch as bt  # noqa: E402
 from bsls_tpu_torch import native  # noqa: E402
-from bsls_tpu_torch.ops import chunkkernel, cudalib, isotonic, pagekernels, rowkernels  # noqa: E402
+from bsls_tpu_torch.ops import (  # noqa: E402
+    chunkkernel, cudalib, ellkernels, isotonic, pagekernels, rowkernels)
+from bsls_tpu_torch.ops import layout as TL  # noqa: E402
 from bsls_tpu_torch.ops.banded import PAGE, DeviceBanded  # noqa: E402
 from bsls_tpu_torch.ops.isotonic import pava_padded  # noqa: E402
 from bsls_tpu_torch.ops.layout import feasible_init  # noqa: E402
@@ -403,6 +411,15 @@ def phase_build(ptxas):
             for nb, r in res[kernel].items():
                 check(r["stack_frame"] == r["spill_stores"] == r["spill_loads"] == 0,
                       f"ptxas: a form of {kernel}<{nb}> uses local memory: {r}")
+        # the ELL product kernel: one instantiation for each vector width
+        # (1, 2, 4 floats a lane) and 1, 2, 4 and 8 descriptors
+        ell = kernel_resources(log.getvalue(), r"ell_gather_dot_kernelILi(\d+ELi\d+)E")
+        want = sorted(f"{f}ELi{nb}" for f in (1, 2, 4) for nb in (1, 2, 4, ellkernels.MAX_GROUPS))
+        check(sorted(ell) == want, f"ptxas: reports on ell_gather_dot_kernel<{sorted(ell)}>")
+        for form, r in ell.items():
+            check(r["stack_frame"] == r["spill_stores"] == r["spill_loads"] == 0,
+                  f"ptxas: ell_gather_dot_kernel<{form}> uses local memory: {r}")
+        res["ell_gather_dot_kernel"] = ell
         emit("ptxas", **res)
 
 
@@ -1042,6 +1059,161 @@ def measure_chunk(name, spec, ctx, steps=100):
 
 # Every kernel brings its wrapper, its plain version, its cases (check) and
 # its timing at the shapes of its path with its bound (measure).
+# ------------------------------------------- phase 3: the ELL product kernel
+
+# the kernel against the plain version, relative to the largest entry of the
+# product: fp32 sums of the same products in another order
+ELL_REL_LIMIT = 5e-4
+
+
+@contextlib.contextmanager
+def plain_products():
+    """``ops.layout``'s products through their plain version on the card (the
+    chain the kernel replaced), for as long as the block runs."""
+    kernel = TL._ell_product
+    TL._ell_product = TL._ell_product_plain
+    try:
+        yield
+    finally:
+        TL._ell_product = kernel
+
+
+def _ell_rel(got, want):
+    scale = max(float(want.abs().max()), 1e-30)
+    return float((got - want).abs().max()) / scale
+
+
+def ell_cases(ctx):
+    """(label, matrix, operand width n, rows m) of the layouts the kernel
+    serves: medium's row and column groups, the eq path's stacked operator
+    (its top an unbucketed (1, m, kr) group read through r[..., :split]), and
+    a column-sharded local ELL (rank 1 of two)."""
+    from bsls_tpu_torch.models.partition import BlockPartition
+    from bsls_tpu_torch.models.problem import ScaledMatrix, VStackMatrix
+
+    dp = ctx["medium"]
+    eq = ctx["eq_base"]
+    perm = TL.build_pf_perm(eq.partition)
+    stacked = TL.to_device_matrix(VStackMatrix(top=eq.A, bottom=ScaledMatrix(eq.C, 2.0)), perm,
+                                  device=DEV)
+    med = ctx["medium_base"]
+    part2 = BlockPartition.from_sizes(med.partition.sizes, block_multiple=2)
+    perm2 = TL.build_pf_perm(part2, 2)
+    sharded = TL.to_device_matrix(med.A, perm2, n_shards=2, shard=(0, 1), device=DEV)
+    return [("medium", dp.A, dp.n_pf, dp.num_rows),
+            ("eq_stacked", stacked, perm.size, stacked.split + eq.C.shape[0]),
+            ("column_shard", sharded, perm2.size // 2, med.A.shape[0])]
+
+
+def check_ell(name, spec, ctx):
+    """matvec and rmatvec through the kernel against the plain chain on the
+    same CUDA tensors, at S = 1 (1-D and (1, n)), 32 and 128 on every case
+    of ``ell_cases``; then more groups than one launch takes."""
+    errs, shapes = [], []
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    for label, A, n, m in ell_cases(ctx):
+        for lead in ((), (1,), (32,), (128,)):
+            x = torch.randn(*lead, n, generator=gen, device=DEV)
+            r = torch.randn(*lead, m, generator=gen, device=DEV)
+            got = (TL.matvec(A, x), TL.rmatvec(A, r))
+            with plain_products():
+                want = (TL.matvec(A, x), TL.rmatvec(A, r))
+            for op, g, w in zip(("matvec", "rmatvec"), got, want):
+                errs.append(_ell_rel(g, w))
+                check(errs[-1] <= ELL_REL_LIMIT, f"{name}: {label} {op} at {lead} differs "
+                      f"from the plain version by {errs[-1]:.2e} of its largest entry")
+            shapes.append(f"{label} S={lead[0] if lead else '1-D'}")
+    # eleven groups (two launches), a rank map and zero rows
+    rng = np.random.default_rng(5)
+    rows = [4000, 0, 2800, 4400, 1200, 2000, 0, 3200, 2400, 1600, 4000, 800, 2000]
+    cols = [torch.from_numpy(rng.integers(0, 5000, (rw, 1 + i % 5 + i // 5)).astype(np.int32))
+            .to(DEV) for i, rw in enumerate(rows)]
+    vals = [torch.randn(c.shape, generator=gen, device=DEV) for c in cols]
+    zeros = 300
+    rank = torch.from_numpy(rng.permutation(zeros + sum(rows)).astype(np.int32)).to(DEV)
+    for S in (1, 32, 128):
+        vec = torch.randn(S, 5000, generator=gen, device=DEV)
+        before = bt.launch_counts()["ell_gather_dot"]
+        got = TL._ell_product(cols, vals, vec, zeros, rank)
+        check(bt.launch_counts()["ell_gather_dot"] - before == 2,
+              f"{name}: eleven groups did not take two launches")
+        errs.append(_ell_rel(got, TL._ell_product_plain(cols, vals, vec, zeros, rank)))
+        check(errs[-1] <= ELL_REL_LIMIT, f"{name}: eleven groups at S = {S}: {errs[-1]:.2e}")
+        shapes.append(f"eleven_groups S={S}")
+    torch.cuda.synchronize()
+    return max(errs), shapes, ELL_REL_LIMIT
+
+
+def _ell_csr(cols, vals, rows_out, n, zeros=0, rank=None):
+    """The library's yardstick: the product's matrix as a CSR tensor in the
+    output's row order (torch.sparse.mm over it; only this script calls it)."""
+    out_row = (torch.arange(rows_out, device=DEV) if rank is None
+               else torch.argsort(rank.long()))  # sorted row -> output row
+    r_idx, c_idx, v_all, at = [], [], [], zeros
+    for c, v in zip(cols, vals):
+        rr = out_row[at:at + c.shape[0]][:, None].expand(c.shape)
+        keep = v != 0
+        r_idx.append(rr[keep])
+        c_idx.append(c.long()[keep])
+        v_all.append(v[keep])
+        at += c.shape[0]
+    idx = torch.stack([torch.cat(r_idx), torch.cat(c_idx)])
+    coo = torch.sparse_coo_tensor(idx, torch.cat(v_all), (rows_out, n)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def measure_ell(name, spec, ctx):
+    """Each product of medium's step at S = 128 (and S = 1, 32): the kernel
+    alone on the (n, S) operand (operands cycled past the L2, and one operand
+    again and again, as the step's fresh transpose leaves it), the product
+    as the step makes it (transpose in, kernel), the plain chain, the
+    library's CSR product, and the bytes bound; for A^T r also the rank map
+    left out of the kernel and applied by one index_select."""
+    A, dp = ctx["medium"].A, ctx["medium"]
+    prods = {"matvec": (A.mv_cols, A.mv_vals, 0, None, dp.n_pf, dp.num_rows),
+             "rmatvec": (A.rt_rows, A.rt_vals, A.rt_zeros, A.rt_inv, dp.num_rows, dp.n_pf)}
+    per_s, total = {}, {}
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    for S in (1, 32, SCENARIOS):
+        entry = {}
+        for op, (cols, vals, zeros, rank, n_in_rows, rows_out) in prods.items():
+            slots = sum(c.numel() for c in cols)
+            n_in = inputs_in_turn(4 * n_in_rows * S)
+            vts = [torch.randn((n_in_rows, S), generator=gen, device=DEV) for _ in range(n_in)]
+            vecs = [vt.t().contiguous() for vt in vts]
+            kern = lambda j: ellkernels.ell_gather_dot(cols, vals, vts[j % n_in], zeros, rank)
+            fn = TL.matvec if op == "matvec" else TL.rmatvec
+            b_bytes = 8 * slots + 4 * S * (n_in_rows + rows_out) + (
+                0 if rank is None else 4 * rows_out)
+            b_ms, by = bound(b_bytes, 2 * slots * S)
+            e = {"ms": device_ms(kern), "warm_ms": device_ms(lambda j: kern(0)),
+                 "product_ms": device_ms(lambda j: fn(A, vecs[j % n_in])),
+                 "bound_ms": b_ms, "bound_by": by, "bytes": b_bytes, "slots": slots,
+                 "groups": len(cols), "plan": list(ellkernels.ell_plan(S))}
+            e["share_of_bound"] = b_ms / e["ms"]
+            with plain_products():
+                e["plain_ms"] = call_ms(lambda j: fn(A, vecs[j % n_in]), reps=4)
+            csr = _ell_csr(cols, vals, rows_out, n_in_rows, zeros, rank)
+            e["library_ms"] = device_ms(lambda j: torch.sparse.mm(csr, vts[j % n_in]))
+            check(_ell_rel(torch.sparse.mm(csr, vts[0]).t(), kern(0)) <= ELL_REL_LIMIT,
+                  f"{name}: the CSR yardstick differs from the kernel at S = {S}")
+            if rank is not None:
+                e["rank_by_index_select_ms"] = device_ms(
+                    lambda j: ellkernels.ell_gather_dot(cols, vals, vts[j % n_in], zeros)
+                    .index_select(1, rank))
+            entry[op] = e
+            del vts, vecs, csr
+        per_s[S] = entry
+    main = per_s[SCENARIOS]
+    for key in ("ms", "product_ms", "plain_ms", "library_ms", "bound_ms"):
+        total[key] = sum(main[op][key] for op in prods)
+    return dict(max_abs_err=0.0, err_is="relative to the product's largest entry",
+                ms=total["ms"], product_ms=total["product_ms"], plain_ms=total["plain_ms"],
+                bound_ms=total["bound_ms"], bound_by="bytes", library_ms=total["library_ms"],
+                share_of_bound=total["bound_ms"] / total["ms"],
+                per_s={str(S): e for S, e in per_s.items()})
+
+
 KERNELS = {
     "proj_simplex_rows": dict(
         fn=rowkernels.proj_simplex_rows, buckets_fn=rowkernels.proj_simplex_buckets,
@@ -1107,6 +1279,11 @@ KERNELS = {
         source="bsls_tpu_torch/csrc/pgd_chunk.cu",
         replaces="bsls_tpu/ops/pallas/megastep_kernel.py:152",
         check=check_chunk, measure=measure_chunk,
+    ),
+    "ell_gather_dot": dict(
+        source="bsls_tpu_torch/csrc/ell_products.cu",
+        replaces=None,  # the reference's products are XLA gathers (ops/layout.py:902)
+        check=check_ell, measure=measure_ell,
     ),
 }
 
@@ -1761,21 +1938,21 @@ def check_rows_at(name, dp, scenarios, seed):
     return max(errs), per_bucket, grouped
 
 
-def top_gather_ms(dp, scenarios=(1, 4, 128)):
-    """Device time of the stacked top's two ``index_select`` gathers (Aᵀr
-    over the (m, S) residual, A·x over the (n_pf, S) iterate) with this
-    path's indices at several S: whether their time follows the bytes they
-    move or the count of indices."""
+def top_products_ms(dp, scenarios=(1, 4, 128)):
+    """Device time of the stacked top's two products (A^T r over the (m, S)
+    residual's r[..., :split], A x over the (n_pf, S) iterate), each one
+    transpose and one ell_gather_dot launch, with this path's indices at
+    several S: whether their time follows the bytes they move or the count
+    of indices."""
     top = dp.A.top
-    mv = top.mv_cols if isinstance(top.mv_cols, tuple) else tuple(top.mv_cols)
-    cases = [(top.rows.reshape(-1), top.num_rows)] + [(c.reshape(-1), dp.n_pf) for c in mv]
-    out = {"indices": [int(idx.numel()) for idx, _ in cases]}
+    out = {"indices": [int(top.rows.numel()), int(top.mv_cols.numel())]}
     for S in scenarios:
-        ms = 0.0
-        for idx, n_src in cases:
-            src = torch.randn((n_src, S), device=DEV)
-            ms += device_ms(lambda j: src.index_select(0, idx))
-        out[f"S={S}"] = {"ms": ms, "out_bytes": 4 * S * sum(out["indices"])}
+        r = torch.randn((S, dp.num_rows), device=DEV)
+        x = torch.randn((S, dp.n_pf), device=DEV)
+        out[f"S={S}"] = {
+            "rmatvec_ms": device_ms(lambda j: TL.rmatvec(top, r[..., :dp.A.split])),
+            "matvec_ms": device_ms(lambda j: TL.matvec(top, x)),
+            "out_bytes": 4 * S * (dp.n_pf + dp.A.split)}
     return out
 
 
@@ -1932,7 +2109,7 @@ def phase_solve_eq_pava(ctx, max_iter=EQ_PAVA_ITERS, inner=EQ_PAVA_INNER):
     ctx["eq_row_errs"]["pava_rows"] = max(err, err128)
     # the z-space step of the stacked operator under the profiler
     prof = profile_steps(dp, "pava", iters=20)
-    gathers = top_gather_ms(dp)
+    top_products = top_products_ms(dp)
     twin = graph_twin("solve_eq_pava", lambda: bt.solve_equality_constrained(
         prob4, method="pgd", line_search="pava", max_iter=GRAPH_TWIN_CHUNKS * 100,
         inner_iters=100, chunk=100, op_cache=cache, device=DEV), solve_ends)
@@ -1952,7 +2129,7 @@ def phase_solve_eq_pava(ctx, max_iter=EQ_PAVA_ITERS, inner=EQ_PAVA_INNER):
          graph_step_profile=_graph_profile(prof), captures=graph["captures"],
          capture_secs=graph["capture_secs"], graph_replays=graph["replays"],
          graph_pool_bytes=graph["pool_bytes"], peak_bytes=peak, graph_vs_eager=twin,
-         top_gathers=gathers,
+         top_products=top_products,
          rows_by_bucket=rows, rows_grouped=grouped, rows_by_bucket_s128=rows128,
          rows_grouped_s128=grouped128, rows_max_err=max(err, err128))
     return counts
@@ -3182,7 +3359,8 @@ def main():
          col_groups=[list(c.shape) for c in dp.A.rt_rows],
          prepare_secs=round(time.perf_counter() - t0, 2))
 
-    ctx = {"medium": dp, "banded": {}, "banded_prob": {}, "banded_info": {}}
+    ctx = {"medium": dp, "medium_base": base, "banded": {}, "banded_prob": {},
+           "banded_info": {}}
     banded_base = bt.synthetic.medium_banded(seed=0)
     for S in (1, 4):
         ctx["banded_prob"][S], ctx["banded"][S], ctx["banded_info"][S] = prepare_banded(
@@ -3209,16 +3387,19 @@ def main():
             return fn(*a)
 
     launches = graphed("solve_exact", phase_solve, "solve_exact", prob, dp, "exact", 200,
-                       ("proj_simplex_rows",))
+                       ("proj_simplex_rows", "ell_gather_dot"))
     report["proj_simplex_rows"]["launches"] = launches["proj_simplex_rows"]
+    report["ell_gather_dot"]["launches"] = launches["ell_gather_dot"]
     launches = graphed("solve_pava", phase_solve, "solve_pava", prob, dp, "pava", 200,
-                       ("pava_rows",))
+                       ("pava_rows", "ell_gather_dot"))
     report["pava_rows"]["launches"] = launches["pava_rows"]
+    report["ell_gather_dot"]["launches"] += launches["ell_gather_dot"]
     graphed("cross_check", phase_cross_check, base)
     phase_float64_refused(ctx, base)
     launches = graphed("solve_banded", phase_solve_banded, ctx)
     report["band_zmv"]["launches"] = launches["band_zmv"]
     report["band_grmv"]["launches"] = launches["band_grmv"]
+    report["ell_gather_dot"]["launches"] += launches["ell_gather_dot"]  # the residual ELL
     launches, eager_ms, graphed_ms = graphed("solve_mega", phase_solve_mega, ctx)
     report["pgd_chunk"]["launches"] = launches["pgd_chunk"]
     report["pgd_chunk"]["eager_solve_ms_per_step"] = eager_ms

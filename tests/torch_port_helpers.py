@@ -4,7 +4,8 @@ crosses between them) and build the small seeded instances the tests use."""
 import numpy as np
 
 # every hand-written kernel of the port, under the name its wrapper counts
-KERNELS = ("proj_simplex_rows", "pava_rows", "band_zmv", "band_grmv", "pgd_chunk")
+KERNELS = ("proj_simplex_rows", "pava_rows", "band_zmv", "band_grmv", "pgd_chunk",
+           "ell_gather_dot")
 
 
 def _arr(a):
