@@ -93,6 +93,7 @@ def device_problem_from_numpy(d: dict, device="cuda", dtype=torch.float32, row_s
             rt_vals=tuple(fl(v) for v in rt_vals) if rt_vals else None,
             rt_inv=opt(f"{stem}.rt_inv", ix),
             rt_zeros=int(d.get(f"{stem}.rt_zeros", 0)),
+            nnz=int(np.count_nonzero(np.asarray(d[f"{stem}.vals"]))),
         )
 
     def matrix(stem, num_rows):

@@ -40,8 +40,9 @@ code path.
 """
 from __future__ import annotations
 
+import math
 import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields, replace
 from typing import Optional, Union
 
 import numpy as np
@@ -50,6 +51,7 @@ import torch.distributed as dist
 
 from ..models.partition import BlockPartition
 from ..models.problem import DenseMatrix, EllMatrix, Problem, ScaledMatrix, VStackMatrix
+from ..utils.profiling import span
 from . import ellkernels
 from .banded import PAGE, DeviceBanded, banded_matvec, banded_rmatvec, build_banded_split
 
@@ -62,6 +64,7 @@ __all__ = [
     "DeviceProblem",
     "build_pf_perm",
     "to_device_matrix",
+    "gather_counts",
     "block_scales",
     "prepare",
     "check_dtype",
@@ -144,6 +147,36 @@ class DeviceEll:
     rt_vals: Optional[tuple] = None
     rt_inv: Optional[torch.Tensor] = None  # (n_pf,) int32 rank in sorted order
     rt_zeros: int = 0  # count of zero-nnz columns (emitted as zeros)
+    # nonzeros of this matrix (a rank's tile), counted on the host where the
+    # layout is built; None where nobody counted them
+    nnz: Optional[int] = None
+    # slots that one A x and one A^T r read, padding included: derived from
+    # the groups the products launch over once here (also by
+    # dataclasses.replace), never in a step
+    gather_slots: int = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "gather_slots", _product_slots(self))
+
+
+def _product_slots(A: "DeviceEll") -> int:
+    """Slots of one A x (the row copy's groups; without one, the scatter
+    over every column slot) plus one A^T r (the column groups, or the plain
+    column-ELL)."""
+    mv = A.mv_cols if isinstance(A.mv_cols, tuple) else (A.mv_cols,)
+    ax = math.prod(A.rows.shape) if A.mv_cols is None else sum(math.prod(c.shape) for c in mv)
+    atr = (math.prod(A.rows.shape) if A.rt_rows is None
+           else sum(math.prod(r.shape) for r in A.rt_rows))
+    return ax + atr
+
+
+def gather_counts(A) -> dict:
+    """``gather_slots`` and ``gather_nnz`` of a gather-layout A: the slots
+    that one A x and one A^T r read, padding included, and the nonzeros they
+    cover (twice A's).  Empty for another layout or uncounted nonzeros."""
+    if not isinstance(A, DeviceEll) or A.nnz is None:
+        return {}
+    return {"gather_slots": A.gather_slots, "gather_nnz": 2 * A.nnz}
 
 
 ROW_ELL_MAX_K = 512
@@ -478,16 +511,34 @@ def to_device_matrix(
     ``row_shards`` row shards): only the tile ``shard = (row shard, column
     shard)`` is built and uploaded.  ELL A is re-encoded per tile when its
     rows are sharded; the rows must divide ``row_shards`` (the caller pads)."""
-    dev = resolve_device(device)
-    np_dtype = _np_float(dtype)
+    host = _host_matrix(M, perm, _np_float(dtype), col_scale, row_bucket, _out, n_shards,
+                        row_shards, shard)
+    return _upload(host, dtype, resolve_device(device))
+
+
+def _upload(M, dtype, dev: torch.device) -> "DeviceMatrix":
+    """A matrix built on the host by ``_host_matrix`` (numpy arrays in its
+    fields) on the device: integer arrays as int32, the others in ``dtype``."""
+    def put(v):
+        if isinstance(v, np.ndarray):
+            kind = torch.int32 if v.dtype.kind in "iu" else dtype
+            # (ascontiguousarray alone makes a 0-d array 1-d)
+            return torch.as_tensor(np.ascontiguousarray(v).reshape(v.shape), dtype=kind,
+                                   device=dev)
+        if isinstance(v, tuple):
+            return tuple(put(x) for x in v)
+        if isinstance(v, (DeviceDense, DeviceEll, DeviceVStack)):
+            return _upload(v, dtype, dev)
+        return v
+
+    return replace(M, **{f.name: put(getattr(M, f.name)) for f in fields(M) if f.init})
+
+
+def _host_matrix(M, perm: np.ndarray, np_dtype, col_scale, row_bucket: bool, _out,
+                 n_shards: int, row_shards: int, shard: tuple):
+    """``to_device_matrix``'s layout on the host: the device matrix with
+    numpy arrays in its fields (``_upload`` moves them)."""
     rsh, csh = shard
-
-    def fl(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
-
-    def ix(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32, device=dev)
-
     if row_shards > 1 and M.shape[0] % row_shards:
         raise ValueError(f"num_rows={M.shape[0]} not divisible by row_shards={row_shards}; "
                          "pad the instance rows first")
@@ -498,7 +549,7 @@ def to_device_matrix(
         data = np.zeros((m_loc, n_loc), dtype=np_dtype)
         cols = np.asarray(M.data)[rsh * m_loc:(rsh + 1) * m_loc][:, perm_loc[sel]]
         data[:, sel] = cols if col_scale is None else cols / np.asarray(col_scale)[perm_loc[sel]]
-        return DeviceDense(data=fl(data))
+        return DeviceDense(data=data)
     sel = perm >= 0
     cs = None if col_scale is None else np.asarray(col_scale)[perm[sel]]
     if isinstance(M, EllMatrix):
@@ -513,8 +564,8 @@ def to_device_matrix(
                                               shard)
             else:
                 r, v2, mc, mv = _build_ell_row_sharded(rows, vals, M.num_rows, row_shards, rsh)
-            return DeviceEll(rows=ix(r), vals=fl(v2), mv_cols=ix(mc), mv_vals=fl(mv),
-                             num_rows=M.num_rows // row_shards)
+            return DeviceEll(rows=r, vals=v2, mv_cols=mc, mv_vals=mv,
+                             num_rows=M.num_rows // row_shards, nnz=int(np.count_nonzero(v2)))
         if row_bucket and n_shards == 1:
             row_perm, mvc, mvv = _build_row_ell_bucketed(rows, vals, M.num_rows)
             if row_perm is not None:
@@ -524,26 +575,14 @@ def to_device_matrix(
                 if _out is not None:
                     _out["row_perm"] = row_perm
                 rt_r, rt_v, rt_inv, n_zero = _build_col_ell_bucketed(rows, vals)
-                return DeviceEll(
-                    rows=ix(rows),
-                    vals=fl(vals),
-                    mv_cols=tuple(ix(c) for c in mvc),
-                    mv_vals=tuple(fl(v2) for v2 in mvv),
-                    num_rows=M.num_rows,
-                    rt_rows=None if rt_r is None else tuple(ix(c) for c in rt_r),
-                    rt_vals=None if rt_v is None else tuple(fl(v2) for v2 in rt_v),
-                    rt_inv=None if rt_inv is None else ix(rt_inv),
-                    rt_zeros=n_zero,
-                )
+                return DeviceEll(rows=rows, vals=vals, mv_cols=mvc, mv_vals=mvv,
+                                 num_rows=M.num_rows, rt_rows=rt_r, rt_vals=rt_v, rt_inv=rt_inv,
+                                 rt_zeros=n_zero, nnz=int(np.count_nonzero(vals)))
         mv_cols, mv_vals = _build_row_ell(rows, vals, M.num_rows, n_shards, csh)
         n_loc = perm.size // n_shards
-        return DeviceEll(
-            rows=ix(rows[csh * n_loc:(csh + 1) * n_loc]),
-            vals=fl(vals[csh * n_loc:(csh + 1) * n_loc]),
-            mv_cols=None if mv_cols is None else ix(mv_cols),
-            mv_vals=None if mv_vals is None else fl(mv_vals),
-            num_rows=M.num_rows,
-        )
+        mine = slice(csh * n_loc, (csh + 1) * n_loc)
+        return DeviceEll(rows=rows[mine], vals=vals[mine], mv_cols=mv_cols, mv_vals=mv_vals,
+                         num_rows=M.num_rows, nnz=int(np.count_nonzero(vals[mine])))
     if isinstance(M, VStackMatrix):
         # each part keeps its own row order (no row-nnz bucketing: the
         # stacked right-hand side is [b; b_bottom] as the caller builds it).
@@ -556,12 +595,12 @@ def to_device_matrix(
         scale, bottom = 1.0, M.bottom
         if isinstance(bottom, ScaledMatrix):
             scale, bottom = bottom.scale, bottom.inner
-        part = dict(dtype=dtype, col_scale=col_scale, device=dev, n_shards=n_shards,
-                    row_shards=row_shards, shard=shard)
+        part = dict(np_dtype=np_dtype, col_scale=col_scale, row_bucket=False, _out=None,
+                    n_shards=n_shards, row_shards=row_shards, shard=shard)
         return DeviceVStack(
-            top=to_device_matrix(M.top, perm, **part),
-            bottom=to_device_matrix(bottom, perm, **part),
-            bottom_scale=torch.tensor(scale, dtype=dtype, device=dev),
+            top=_host_matrix(M.top, perm, **part),
+            bottom=_host_matrix(bottom, perm, **part),
+            bottom_scale=np.asarray(scale, np.float64),
             split=M.top.shape[0] // row_shards,
         )
     raise TypeError(f"unsupported host matrix type {type(M)}")
@@ -739,17 +778,10 @@ def _prepare_banded(
             # residual's A^T r takes the plain local (n_loc, k) gather
             rt_r = rt_v = rt_inv = None
             n_zero = 0
-        resid = DeviceEll(
-            rows=ix(res_rows[mine]),
-            vals=fl(res_vals[mine]),
-            mv_cols=None if mv_cols is None else ix(mv_cols),
-            mv_vals=None if mv_vals is None else fl(mv_vals),
-            num_rows=A0.num_rows,
-            rt_rows=None if rt_r is None else tuple(ix(x) for x in rt_r),
-            rt_vals=None if rt_v is None else tuple(fl(x) for x in rt_v),
-            rt_inv=None if rt_inv is None else ix(rt_inv),
-            rt_zeros=n_zero,
-        )
+        resid = _upload(DeviceEll(
+            rows=res_rows[mine], vals=res_vals[mine], mv_cols=mv_cols, mv_vals=mv_vals,
+            num_rows=A0.num_rows, rt_rows=rt_r, rt_vals=rt_v, rt_inv=rt_inv, rt_zeros=n_zero,
+            nnz=int(np.count_nonzero(res_vals[mine]))), dtype, dev)
     A = DeviceBanded(
         bands=tuple(fl(bd[shard * gl:(shard + 1) * gl]) for bd in bands),
         resid=resid,
@@ -787,6 +819,7 @@ def prepare(
     row_group=None,
     scenarios: Optional[slice] = None,
     _out: Optional[dict] = None,
+    phases: Optional[dict] = None,
 ) -> DeviceProblem:
     """Move a host Problem into the device-side PF layout.
 
@@ -812,7 +845,13 @@ def prepare(
 
     A ``Problem`` with equality constraints (``C``) is not prepared here:
     ``solve()`` runs it through the augmented-Lagrangian loop, which prepares
-    the stacked problem ``[A; sqrt(rho) C]`` (whose ``C`` is ``None``)."""
+    the stacked problem ``[A; sqrt(rho) C]`` (whose ``C`` is ``None``).
+
+    The build is the span ``bsls.prepare`` (``utils/profiling.py::span``)
+    around ``prepare.band`` (the banded attempt, its upload too where it is
+    taken), ``prepare.layout`` (the gather layout's permutation, scales and
+    ELL encodes on the host) and ``prepare.upload``; ``phases``, where given,
+    gets their host seconds."""
     if layout not in ("auto", "banded", "gather"):
         raise ValueError(f"unknown layout {layout!r}")
     check_dtype(dtype, device)
@@ -822,52 +861,54 @@ def prepare(
             "pass it to solve(), which runs the augmented-Lagrangian loop "
             "(solvers.eq_constrained) on the stacked operator [A; sqrt(rho) C]")
     dev = resolve_device(device)
-    col_sharded = n_shards > 1 or col_group is not None
-    row_sharded = row_shards > 1 or row_group is not None
-    rsh, csh = shard
-    b_host = np.asarray(problem.b)
-    num_scenarios = int(b_host.shape[0]) if b_host.ndim == 2 else 1
-    if layout == "banded" or (layout == "auto" and num_scenarios < 16):
-        if isinstance(problem.A, EllMatrix) and not row_sharded:
-            dp = _prepare_banded(problem, dtype, equilibrate, force=(layout == "banded"),
-                                 dev=dev, n_shards=n_shards, shard=csh, col_group=col_group,
-                                 scenarios=scenarios, _out=_out)
-            if dp is not None:
-                return dp
-        elif layout == "banded":
-            raise ValueError("layout='banded' requires an EllMatrix instance and column "
-                             "(block) or no sharding: row sharding has no banded form")
-    part = problem.partition
-    perm = build_pf_perm(part, n_shards)
-    c, col_scale = _scales(problem, equilibrate)
-    buckets = _device_buckets(part, c, dtype, dev, n_shards, csh)
-    out_info: dict = {}
-    A = to_device_matrix(
-        problem.A, perm, dtype, col_scale,
-        row_bucket=isinstance(problem.A, EllMatrix) and not (col_sharded or row_sharded),
-        device=dev, _out=out_info, n_shards=n_shards, row_shards=row_shards, shard=shard,
-    )
-    b = _local_b(b_host, scenarios, row_shards, rsh)
-    if "row_perm" in out_info:
-        # r lives in the nnz-sorted row order from here on
-        b = b[..., out_info["row_perm"]]
-    n_loc = perm.size // n_shards
-    return DeviceProblem(
-        A=A,
-        b=torch.as_tensor(np.ascontiguousarray(b), dtype=dtype, device=dev),
-        buckets=buckets,
-        perm=torch.as_tensor(perm[csh * n_loc:(csh + 1) * n_loc], dtype=torch.int32,
-                             device=dev),
-        n_user=part.n_flat,
-        num_rows=problem.A.shape[0],
-        row_perm=(
-            torch.as_tensor(out_info["row_perm"], dtype=torch.int32, device=dev)
-            if "row_perm" in out_info
-            else None
-        ),
-        col_group=col_group,
-        row_group=row_group,
-    )
+    with span("prepare", phases):
+        col_sharded = n_shards > 1 or col_group is not None
+        row_sharded = row_shards > 1 or row_group is not None
+        rsh, csh = shard
+        b_host = np.asarray(problem.b)
+        num_scenarios = int(b_host.shape[0]) if b_host.ndim == 2 else 1
+        if layout == "banded" or (layout == "auto" and num_scenarios < 16):
+            if isinstance(problem.A, EllMatrix) and not row_sharded:
+                with span("prepare.band", phases):
+                    dp = _prepare_banded(problem, dtype, equilibrate, force=(layout == "banded"),
+                                         dev=dev, n_shards=n_shards, shard=csh,
+                                         col_group=col_group, scenarios=scenarios, _out=_out)
+                if dp is not None:
+                    return dp
+            elif layout == "banded":
+                raise ValueError("layout='banded' requires an EllMatrix instance and column "
+                                 "(block) or no sharding: row sharding has no banded form")
+        part = problem.partition
+        out_info: dict = {}
+        with span("prepare.layout", phases):
+            perm = build_pf_perm(part, n_shards)
+            c, col_scale = _scales(problem, equilibrate)
+            A = _host_matrix(
+                problem.A, perm, _np_float(dtype), col_scale,
+                isinstance(problem.A, EllMatrix) and not (col_sharded or row_sharded), out_info,
+                n_shards, row_shards, shard)
+            b = _local_b(b_host, scenarios, row_shards, rsh)
+            if "row_perm" in out_info:
+                # r lives in the nnz-sorted row order from here on
+                b = b[..., out_info["row_perm"]]
+        n_loc = perm.size // n_shards
+        with span("prepare.upload", phases):
+            return DeviceProblem(
+                A=_upload(A, dtype, dev),
+                b=torch.as_tensor(np.ascontiguousarray(b), dtype=dtype, device=dev),
+                buckets=_device_buckets(part, c, dtype, dev, n_shards, csh),
+                perm=torch.as_tensor(perm[csh * n_loc:(csh + 1) * n_loc], dtype=torch.int32,
+                                     device=dev),
+                n_user=part.n_flat,
+                num_rows=problem.A.shape[0],
+                row_perm=(
+                    torch.as_tensor(out_info["row_perm"], dtype=torch.int32, device=dev)
+                    if "row_perm" in out_info
+                    else None
+                ),
+                col_group=col_group,
+                row_group=row_group,
+            )
 
 
 # ---------------- layout conversions (device, shape-driven) ----------------

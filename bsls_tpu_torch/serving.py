@@ -89,6 +89,10 @@ class Endpoint:
             # makes it current in its own thread
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
+        # host seconds of the build's phases (``bsls.prepare`` and its parts:
+        # ``ops/layout.py::prepare``); empty on a mesh or for an eq problem,
+        # which prepare elsewhere
+        self.build_phases: dict = {}
         self._problem = problem
         self._eq = problem.C is not None
         self._m = problem.A.shape[0]
@@ -114,7 +118,7 @@ class Endpoint:
             self._lip = power(self._dp)
         else:
             self._dp = L.prepare(problem, dtype=dtype, equilibrate=equilibrate,
-                                 device=self.device)
+                                 device=self.device, phases=self.build_phases)
 
     @property
     def num_rows(self) -> int:

@@ -852,9 +852,10 @@ def solve(
     multi = dp.b.ndim == 2
     # host seconds of the phases between the syncs the solve makes anyway
     # (the power iteration's readback, the warm-up's synchronise, each
-    # chunk's readback, the result's), and what it counted
+    # chunk's readback, the result's), and what it counted; the layout's
+    # static counts come with it
     phases: dict = {}
-    counts = {"chunks": 0, "captures": 0}
+    counts = {"chunks": 0, "captures": 0, **L.gather_counts(dp.A)}
 
     if lipschitz is not None:
         L_est = float(lipschitz)
