@@ -718,7 +718,7 @@ def solve(
     callback: Optional[Callable[[int, Any], None]] = None,
     mesh=None,
     verbose: bool = False,
-    x0: Optional[np.ndarray] = None,
+    x0: Optional[np.ndarray | torch.Tensor] = None,
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 0,
     checkpoint_keep: int = 0,
@@ -733,6 +733,7 @@ def solve(
     device="cuda",
     layout: str = "auto",
     shard_rows: bool = False,
+    x_on_device: bool = False,
 ) -> SolveResult:
     """Solve a block-simplex LSQ instance on one device, or on a mesh.
 
@@ -751,7 +752,12 @@ def solve(
 
     ``lipschitz`` skips the on-device power iteration and uses the given
     ||A||_2^2 bound (||A D||_2^2 for the z-space modes) for the 1/L trial
-    step.  ``x0`` (N,) or (S, N) is a warm start in the user's ordering.
+    step.  ``x0`` (N,) or (S, N) is a warm start in the user's ordering: a
+    numpy array, or a tensor (on any device), cast to the solve's dtype and
+    moved to its device as the array would be.  ``x_on_device`` returns
+    ``x`` as a tensor on the solve's device, in its dtype, with no copy to
+    the host (the equality-constrained loop hands it to its next inner
+    solve); not with ``refine``.
 
     ``certify=K`` runs K pairwise-FW polish steps after the main solve to
     tighten the duality-gap certificate; the polished state replaces the
@@ -814,6 +820,8 @@ def solve(
         raise ValueError(
             "refine requires a host Problem (the correction anchor is "
             "re-evaluated in float64 on the host)")
+    if refine > 0 and x_on_device:
+        raise ValueError("x_on_device does not combine with refine, whose x is a host array")
     if mesh is not None:
         from ..parallel.sharding import solve_sharded
 
@@ -872,7 +880,10 @@ def solve(
     with span("init", phases):
         xp0 = None
         if x0 is not None:
-            x0t = torch.as_tensor(np.asarray(x0), dtype=dp.b.dtype).to(dp.device)
+            if isinstance(x0, torch.Tensor):
+                x0t = x0.to(device=dp.device, dtype=dp.b.dtype)
+            else:
+                x0t = torch.as_tensor(np.asarray(x0), dtype=dp.b.dtype).to(dp.device)
             xp0 = L.inject_user_flat(dp, x0t if multi else x0t[None])
         state = solver.init(dp, L_est, opts, xp0=xp0)
 
@@ -949,7 +960,8 @@ def solve(
         # x regardless of method (the z-space path can leave O(eps) negative
         # entries after the z->x difference map)
         xp = proj_blocks(state.xp, dp.buckets)
-        x = L.extract_user_flat(dp, xp).cpu().numpy()
+        x = L.extract_user_flat(dp, xp)
+        x = x if x_on_device else x.cpu().numpy()
         f = state.f.cpu().numpy()
         gap = state.gap.cpu().numpy()
         if not multi:

@@ -2,7 +2,7 @@
 
     minimize 0.5||Ax-b||^2  s.t.  x in product of simplices,  C x = d
 
-Outer loop (host): with multiplier lam and penalty rho, the inner problem
+Outer loop: with multiplier lam and penalty rho, the inner problem
 
     min 0.5||Ax-b||^2 + lam.(Cx-d) + rho/2 ||Cx-d||^2
   = min 0.5|| [A; sqrt(rho) C] x - [b; sqrt(rho)(d - lam/rho)] ||^2 + const
@@ -12,8 +12,8 @@ solve is the unconstrained chunk runner of ``solvers/base.py`` unchanged:
 only the bottom RHS block and the penalty scale change between outer
 iterations, and the scale is the 0-d tensor ``DeviceVStack.bottom_scale``,
 so the stacked operator is prepared once.  Multiplier update
-lam += rho (Cx - d), in float64 on the host; rho grows when the violation
-stalls.
+lam += rho (Cx - d), in float64 on the device that holds the stacked
+operator; rho grows, on the host, when the violation stalls.
 
 Multi-RHS scenarios are first-class: for b of shape (S, m) the multipliers
 are per-scenario vectors lam (S, p), the stacked RHS [b_s; sqrt(rho)
@@ -38,13 +38,15 @@ column, or with ``shard_rows`` by row, each inner solve
 from __future__ import annotations
 
 import time
+import warnings
+from dataclasses import dataclass
 from dataclasses import replace as dc_replace
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..models.problem import Problem, ScaledMatrix, VStackMatrix
+from ..models.problem import DenseMatrix, Problem, ScaledMatrix, VStackMatrix
 from ..ops import layout as L
 from ..utils.checkpoint import latest_checkpoint, load_state, save_state
 from ..utils.profiling import span
@@ -67,6 +69,46 @@ def _violation(cx_d: np.ndarray, d: np.ndarray, p: int) -> float:
     return float(np.abs(cx_d).max()) / max(1.0, float(np.abs(d).max()))
 
 
+@dataclass(frozen=True)
+class EqInstance:
+    """What the AL loop reads of an instance besides its stacked operator,
+    kept in the ``op_cache`` entry beside it: rho0's scales (the mean
+    squared column norms of A and of C) and float64 copies of A and C on
+    the loop's device, for C x and the reported objective."""
+
+    a_scale: float
+    c_scale: float
+    A64: torch.Tensor
+    C64: torch.Tensor
+
+    @classmethod
+    def of(cls, problem: Problem, dev) -> "EqInstance":
+        return cls(a_scale=float(np.mean(L._col_norms_sq(problem.A))),
+                   c_scale=float(np.mean(L._col_norms_sq(problem.C))) or 1.0,
+                   A64=_f64_copy(problem.A, dev), C64=_f64_copy(problem.C, dev))
+
+
+def _f64_copy(M, dev) -> torch.Tensor:
+    """A host matrix in float64 on ``dev``: a dense tensor, or for a sparse
+    (ELL) matrix a CSR tensor of its nonzeros, the operand of
+    ``torch.sparse.mm``."""
+    if isinstance(M, DenseMatrix):
+        return torch.as_tensor(np.asarray(M.data, np.float64)).to(dev)
+    csr = M.to_scipy().tocsr()
+    parts = [torch.as_tensor(a, dtype=t).to(dev) for a, t in (
+        (csr.indptr, torch.int64), (csr.indices, torch.int64), (csr.data, torch.float64))]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # "CSR support is in beta state"
+        return torch.sparse_csr_tensor(*parts, size=csr.shape, check_invariants=False)
+
+
+def _times(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """M x of each row x of X ((S, n), float64): (S, rows of M)."""
+    if M.layout == torch.sparse_csr:
+        return torch.sparse.mm(M, X.t().contiguous()).t()
+    return X @ M.t()
+
+
 def op_cache_key(problem: Problem, dtype, method: str, line_search: str, device, mesh=None,
                  shard_rows: bool = False) -> tuple:
     """The ``op_cache`` entry of ``solve_equality_constrained`` for this
@@ -84,24 +126,32 @@ def op_cache_key(problem: Problem, dtype, method: str, line_search: str, device,
 
 
 def _from_rank0(mesh, *values):
-    """On a mesh of several processes, rank 0's values of these float64 host
-    arrays and scalars, broadcast to every rank, so that every decision of
-    the outer loop (the multipliers, rho, the violation, the stop streak,
-    refine's guard) is taken on the same numbers on every rank: a rank on
-    another branch would wait alone in a collective.  Without a mesh, or in
-    a world of one, the values themselves."""
+    """On a mesh of several processes, rank 0's values of these float64
+    tensors, host arrays and scalars, broadcast to every rank (a tensor on
+    its own device), so that every decision of the outer loop (the
+    multipliers, rho, the violation, the stop streak, refine's guard) is
+    taken on the same numbers on every rank: a rank on another branch would
+    wait alone in a collective.  Without a mesh, or in a world of one, the
+    values themselves."""
     import torch.distributed as dist
 
     if mesh is None or dist.get_world_size() == 1:
         return values
-    arrays = [np.asarray(v, np.float64) for v in values]
-    flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrays]))
-    dist.broadcast(flat, src=0)
-    out, off = [], 0
-    for v, a in zip(values, arrays):
-        got = flat[off:off + a.size].numpy().reshape(a.shape)
-        off += a.size
-        out.append(got.copy() if isinstance(v, np.ndarray) else type(v)(got))
+    out = list(values)
+    on_host = [i for i, v in enumerate(values) if not isinstance(v, torch.Tensor)]
+    for i, v in enumerate(values):
+        if isinstance(v, torch.Tensor):
+            out[i] = v.clone()
+            dist.broadcast(out[i], src=0)
+    if on_host:
+        arrays = [np.asarray(values[i], np.float64) for i in on_host]
+        flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrays]))
+        dist.broadcast(flat, src=0)
+        off = 0
+        for i, a in zip(on_host, arrays):
+            got = flat[off:off + a.size].numpy().reshape(a.shape)
+            off += a.size
+            out[i] = got.copy() if isinstance(values[i], np.ndarray) else type(values[i])(got)
     return tuple(out)
 
 
@@ -150,13 +200,24 @@ def solve_equality_constrained(
     slowly, so warm outer loops converge in 1-2 outers instead of ~5).  The
     final state is reported as ``eq_lam``/``eq_rho``.
 
+    The loop's float64 state lives on the device of the stacked operator:
+    b (uploaded once as given), d, the multipliers, C x - d, the violation's
+    ratio, the multiplier update and the stacked RHS's bottom part
+    sqrt(rho) (d - lam/rho), cast into the stacked RHS there.  Per outer the
+    host reads back the violation alone; rho's growth and the stop test are
+    taken on the host.  On one device x stays there from outer to outer
+    (``solve``'s tensor warm start and ``x_on_device``) and is read back once,
+    at the end; a mesh's inner solves take and give host arrays.
+
     ``op_cache`` (a plain dict owned by the caller, keyed by
-    ``op_cache_key``) keeps the prepared stacked operator and its Lipschitz
-    constants ACROSS calls: repeat requests against one instance skip the
-    host re-encode, the upload and the power iterations.  An entry is
-    ``(prepared, rho_base, L_base, L_C, A, C)``: it keeps the A and C it was
-    prepared from, so that their ids are not reused while it lives, and it is
-    used only for those very objects.  The bound then
+    ``op_cache_key``) keeps the prepared stacked operator, its Lipschitz
+    constants and the instance's ``EqInstance`` ACROSS calls: repeat requests
+    against one instance skip the host re-encode, the upload, the power
+    iterations, rho0's column norms and the float64 copies.  An entry is
+    ``(prepared, rho_base, L_base, L_C, A, C, instance)`` (one handed in
+    without ``instance`` gets it at its first use): it keeps the A and C it
+    was prepared from, so that their ids are not reused while it lives, and
+    it is used only for those very objects.  The bound then
     updates analytically, lam_max(A^T A + rho C^T C) <= L(rho_base) +
     (rho - rho_base) lam_max(C^T C), in x- and z-space alike; the block
     equilibration stays that of the first outer's rho.
@@ -168,10 +229,10 @@ def solve_equality_constrained(
     own, the stacked RHS interleaved).  ``prepared`` is then ``(dp, part,
     mesh)``, this rank's tile, built once with its two collective power
     iterations; each outer swaps the penalty scale and uploads the rank's
-    slice of the stacked RHS.  The host state (multipliers, rho, violation,
-    stop streak, refine's guard) is rank 0's, broadcast after each update,
-    so that every rank takes every decision alike.  A mesh with ``row > 1``
-    raises, as in the reference; ``shard_rows`` needs a mesh.
+    slice of the stacked RHS.  The loop's state (multipliers, rho,
+    violation, stop streak, refine's guard) is rank 0's, broadcast after
+    each update, so that every rank takes every decision alike.  A mesh with
+    ``row > 1`` raises, as in the reference; ``shard_rows`` needs a mesh.
 
     ``metrics`` receives one "outer" record per outer iteration (violation,
     rho after the update and ``inner_rho`` the inner solve used, inner
@@ -180,18 +241,25 @@ def solve_equality_constrained(
     on a mesh, rank 0's only.  The record's float64 objective is the span
     ``bsls.eq.record``, apart from the outer's host work ``bsls.eq.host``.
 
-    The result's ``phases`` holds the host seconds of ``eq.setup`` (casts,
-    rho0's column norms, the ``op_cache`` lookup, the build on a miss),
-    ``eq.upload`` and ``eq.host`` summed over the outers, ``eq.record`` (only
-    with ``metrics``), ``eq.report`` and the inner solves' phases summed;
-    ``counts`` the outers run and the inner solves' counts summed.
+    The result's ``phases`` holds the host seconds of ``eq.setup`` (the
+    uploads of b, d and the warm start, the ``op_cache`` lookup, the build
+    and the ``EqInstance`` on a miss), ``eq.upload`` (the stacked RHS) and
+    ``eq.host`` summed over the outers, ``eq.record`` (only with
+    ``metrics``), ``eq.report`` and the inner solves' phases summed;
+    ``counts`` the outers run, ``eq_host_bytes`` (the bytes the loop copies
+    between host and device: b, d, the warm start, each outer's penalty
+    scale and violation, the reported objectives, the final x and
+    multipliers, checkpoints, but not the records'; on a mesh also the host
+    arrays handed to and taken from its inner solves and each outer's
+    stacked RHS) and the inner solves' counts summed.
 
     ``refine=K`` runs K float64 AL finishing outers (``refine_polish`` on the
     stacked problem, then the multiplier update in float64; on a mesh the
     gathered x is polished on the host); ``refine_tol`` runs the certified
     finisher (``prox_bpp_polish``, then ``eq_multiplier_polish`` where the
     walk does not certify) and reports the Lagrangian dual bound as
-    ``refine_fw_gap``.
+    ``refine_fw_gap``.  Both work on the host: x and the multipliers are
+    read back once, where they start.
 
     ``checkpoint_path``/``checkpoint_every``/``checkpoint_keep``/``resume``
     checkpoint at OUTER granularity (``checkpoint_every`` counts outer
@@ -224,11 +292,24 @@ def solve_equality_constrained(
         dev = L.resolve_device(device)
 
     C = problem.C
-    n = problem.A.shape[1]
+    m, n = problem.A.shape
     rank0 = mesh is None or mesh.rank == 0
-    # host seconds by phase (the inner solves' summed in), and the outers run
+    # host seconds by phase (the inner solves' summed in), the outers run and
+    # the bytes the loop copies between host and device
     phases: dict = {}
-    counts = {"outers": 0}
+    counts = {"outers": 0, "eq_host_bytes": 0}
+
+    def up(a, dt=torch.float64):
+        """A host array or number on the loop's device, cast on the host to
+        ``dt`` first (None keeps its dtype), as ``solve`` casts a warm
+        start."""
+        t = torch.as_tensor(np.asarray(a), dtype=dt)
+        counts["eq_host_bytes"] += t.numel() * t.element_size()
+        return t.to(dev)
+
+    def down(t: torch.Tensor) -> np.ndarray:
+        counts["eq_host_bytes"] += t.numel() * t.element_size()
+        return t.cpu().numpy()
 
     def shard_info():
         """A mesh rank's checkpoint: the whole host state, every leaf whole."""
@@ -238,33 +319,36 @@ def solve_equality_constrained(
                 "mesh": dict(mesh.shape),
                 "leaves": [[[0] * v.ndim, list(v.shape)] for _, v in sorted(ck_like.items())]}
 
-    def stacked_rhs(rho_now):
+    def host_stacked_rhs(rho_now, lam_now):
+        """The stacked RHS on the host, for refine's host anchor."""
         sr_now = np.sqrt(rho_now)
-        return sr_now, np.concatenate([b, sr_now * (d - lam / rho_now)], axis=-1)
+        return sr_now, np.concatenate([np.asarray(problem.b, np.float64),
+                                       sr_now * (d - lam_now / rho_now)], axis=-1)
 
     def stacked_problem(sr_now, b_st):
         return Problem(A=VStackMatrix(top=problem.A, bottom=ScaledMatrix(C, sr_now)),
                        b=b_st, partition=problem.partition, name=problem.name + "+eq")
 
-    def on_device(dp, sr_now, b_st):
-        """The cached stacked operator with this penalty and this RHS (on a
-        mesh: this rank's slice of it, interleaved under row sharding)."""
-        A_now = dc_replace(dp.A, bottom_scale=torch.tensor(sr_now, dtype=dp.b.dtype,
-                                                           device=dp.device))
+    def on_device(dp, sr_now, bottom):
+        """The cached stacked operator with this penalty and the stacked RHS
+        [b; bottom] (on a mesh: this rank's slice of it, interleaved under
+        row sharding)."""
+        A_now = dc_replace(dp.A, bottom_scale=up(sr_now, dp.b.dtype))
         if mesh is None:
-            return dc_replace(dp, A=A_now, b=torch.as_tensor(b_st, dtype=dp.b.dtype).to(dp.device))
-        b_up = np.atleast_2d(b_st)
+            b_st[..., m:] = bottom
+            return dc_replace(dp, A=A_now, b=b_st)
+        b_up = np.atleast_2d(np.concatenate([b_host64, down(bottom)], axis=-1))
         if shard_rows:
-            m_top = problem.A.shape[0]
-            b_up = SH.interleave_stacked_rows(b_up[:, :m_top], b_up[:, m_top:],
-                                              mesh.shape[BLOCK_AXIS])
+            b_up = SH.interleave_stacked_rows(b_up[:, :m], b_up[:, m:], mesh.shape[BLOCK_AXIS])
+        counts["eq_host_bytes"] += b_up.nbytes
         return SH.with_rank_rhs(dc_replace(dp, A=A_now), b_up, mesh)
 
-    def build(sr_now, b_st):
+    def build(sr_now):
         """The stacked operator, prepared (on a mesh: this rank's tile) with
         its two power iterations: L at this rho, and lam_max(C^T C) on the
-        bottom part alone (the same equilibrated encoding, unit scale)."""
-        stacked = stacked_problem(sr_now, b_st)
+        bottom part alone (the same equilibrated encoding, unit scale).  Its
+        RHS is zeros: every outer writes its own."""
+        stacked = stacked_problem(sr_now, np.zeros(lead + (m + p,), np.float32))
         if mesh is None:
             dp = L.prepare(stacked, dtype=dtype, device=dev)
         elif shard_rows:
@@ -275,33 +359,54 @@ def solve_equality_constrained(
         L_bot = power(dc_replace(dp, A=dp.A.bottom))
         return (dp if mesh is None else (dp, part, mesh)), L_top, L_bot
 
+    def objective(x64, counted: bool = True):
+        """0.5 ||A x - b||^2 of each scenario in float64 on the device: (S,)
+        on the host, or a float for one right-hand side.  A record's is not
+        counted: a request copies the same bytes with a sink as without."""
+        r = _times(inst.A64, x64.reshape(-1, n)) - b_dev.reshape(-1, m)
+        f = 0.5 * (r * r).sum(dim=-1)
+        f = down(f) if counted else f.cpu().numpy()
+        return f if multi else float(f[0])
+
     with span("eq.setup", phases):
-        b = np.asarray(problem.b, dtype=np.float64)
-        multi = b.ndim == 2
-        S = b.shape[0] if multi else 1
+        b_host = np.asarray(problem.b)
+        multi = b_host.ndim == 2
+        S = b_host.shape[0] if multi else 1
+        lead = (S,) if multi else ()
         p = C.shape[0]
         d = np.asarray(problem.d, dtype=np.float64)
         if multi and d.ndim == 1:
             d = np.broadcast_to(d, (S, p))
-        if lam0 is not None:
-            lam = np.broadcast_to(
-                np.asarray(lam0, np.float64), (S, p) if multi else (p,)
-            ).copy()
-        else:
-            lam = np.zeros((S, p) if multi else p)
+        dref = max(1.0, float(np.abs(d).max())) if p else 1.0
+        lam = (np.broadcast_to(np.asarray(lam0, np.float64), lead + (p,)).copy()
+               if lam0 is not None else None)
+
+        if op_cache is None:
+            op_cache = {}
+        key = op_cache_key(problem, dtype, method, line_search, dev, mesh, shard_rows)
+        # an entry holds the A and C it was prepared from (and on a mesh the
+        # mesh): their ids stay taken while the entry lives, and an entry of
+        # other objects is not used
+        entry = op_cache.get(key)
+        if entry is not None and (entry[4] is not problem.A or entry[5] is not C
+                                  or (mesh is not None and entry[0][2] is not mesh)):
+            entry = None
+        dp_cache, rho_base, L_base, LC = (None,) * 4 if entry is None else entry[:4]
+        inst = entry[6] if entry is not None and len(entry) > 6 else EqInstance.of(problem, dev)
+        if entry is not None and len(entry) == 6:
+            op_cache[key] = (*entry, inst)
 
         # scale rho by the ratio of squared column norms so the penalty term
         # is commensurate with the data term from the first outer iteration;
         # start an order of magnitude below the data term so early inners
         # optimise the objective, and let rho grow as needed
-        a_scale = float(np.mean(L._col_norms_sq(problem.A)))
-        c_scale = float(np.mean(L._col_norms_sq(C))) or 1.0
-        rho = float(rho_init) if rho_init > 0 else 0.1 * float(rho0) * a_scale / c_scale
+        rho = (float(rho_init) if rho_init > 0
+               else 0.1 * float(rho0) * inst.a_scale / inst.c_scale)
 
         viol = np.inf
         total_iters = 0
         start_outer = 0
-        ck_like = {"lam": lam, "x": np.zeros((S, n) if multi else n)}
+        ck_like = {"lam": np.zeros(lead + (p,)), "x": np.zeros(lead + (n,))}
 
         if resume and checkpoint_path:
             if mesh is not None:
@@ -322,24 +427,34 @@ def solve_equality_constrained(
         # z-space inners need the z-curvature; the analytic bound splits the
         # same way there, since D^T (A^T A + rho C^T C) D does
         power = power_lipschitz_z if uses_zspace(method, line_search) else power_lipschitz
-        if op_cache is None:
-            op_cache = {}
-        key = op_cache_key(problem, dtype, method, line_search, dev, mesh, shard_rows)
-        # an entry holds the A and C it was prepared from (and on a mesh the
-        # mesh): their ids stay taken while the entry lives, and an entry of
-        # other objects is not used
-        dp_cache, rho_base, L_base, LC, A_c, C_c = op_cache.get(key, (None,) * 6)
-        if (A_c is not problem.A or C_c is not problem.C
-                or (mesh is not None and dp_cache is not None and dp_cache[2] is not mesh)):
-            dp_cache = None
         if dp_cache is None and start_outer < outer_iters and total_iters < max_iter:
             # a miss: the first outer's stacked operator, prepared at its rho
             with span("eq.build"):
-                dp_cache, L_base, LC = build(*stacked_rhs(rho))
+                dp_cache, L_base, LC = build(np.sqrt(rho))
             rho_base = rho
-            op_cache[key] = (dp_cache, rho_base, L_base, LC, problem.A, C)
+            op_cache[key] = (dp_cache, rho_base, L_base, LC, problem.A, C, inst)
+
+        # the loop's float64 state on the device: b as given (widened where
+        # it is read), d and the multipliers
+        b_dev = up(b_host, None)
+        d_dev = up(problem.d)
+        if multi and d_dev.ndim == 1:
+            d_dev = d_dev.expand(S, p)
+        lam = torch.zeros(lead + (p,), dtype=torch.float64, device=dev) if lam is None else up(lam)
+        dp_one = dp_cache if mesh is None or dp_cache is None else dp_cache[0]
+        x_prev = x0
+        if mesh is None and dp_one is not None:
+            # the stacked RHS [b; sqrt(rho)(d - lam/rho)] of every outer, on
+            # the device; the warm start goes there as solve's init takes it
+            b_st = torch.empty(lead + (m + p,), dtype=dp_one.b.dtype, device=dev)
+            b_st[..., :m] = b_dev
+            if x0 is not None:
+                x_prev = up(x0, dp_one.b.dtype)
+        elif mesh is not None:
+            b_host64 = np.asarray(b_host, np.float64)
 
     result = None
+    x64 = None  # the last outer's x in float64 on the device
     ok_streak = 0
     inner_phases: dict = {}
     for outer in range(start_outer, outer_iters):
@@ -349,18 +464,20 @@ def solve_equality_constrained(
         this_inner = min(inner_iters, budget)
         with span("eq.outer") as outer_span:
             with span("eq.upload", phases):
-                sr, b_stacked = stacked_rhs(rho)
-                dp_now = on_device(dp_cache if mesh is None else dp_cache[0], sr, b_stacked)
-            x_prev = x0 if result is None else np.asarray(result.x)
+                sr = float(np.sqrt(rho))
+                dp_now = on_device(dp_one, sr, sr * (d_dev - lam / rho))
             inner = dict(method=method, tol=tol, max_iter=this_inner, chunk=chunk,
                          line_search=line_search, step_size=step_size, dtype=dtype,
                          x0=x_prev,  # warm start from the previous outer iterate
                          lbfgs_mem=lbfgs_mem, metrics=metrics,
                          lipschitz=L_base + max(0.0, rho - rho_base) * LC)
             if mesh is None:
-                result = solve(dp_now, **inner)
+                result = solve(dp_now, x_on_device=True, **inner)
             else:
+                if x_prev is not None:
+                    counts["eq_host_bytes"] += np.asarray(x_prev).nbytes
                 result = SH.solve_sharded((dp_now, dp_cache[1], not multi), mesh, **inner)
+                counts["eq_host_bytes"] += np.asarray(result.x).nbytes
             for k, v in result.phases.items():
                 inner_phases[k] = inner_phases.get(k, 0.0) + v
             for k, v in result.counts.items():
@@ -368,9 +485,11 @@ def solve_equality_constrained(
             counts["outers"] += 1
             with span("eq.host", phases) as host:
                 total_iters += result.iterations
-                x = np.asarray(result.x, dtype=np.float64)
-                cx_d = _c_matvec(C, x) - d
-                new_viol = _violation(cx_d, d, p)
+                # on one device x stays there for the next outer
+                x_prev = result.x
+                x64 = (x_prev if mesh is None else up(x_prev, None)).to(torch.float64)
+                cx_d = _times(inst.C64, x64.reshape(-1, n)).reshape(lam.shape) - d_dev
+                new_viol = float(down(cx_d.abs().amax())) / dref if p else 0.0
                 rho_inner = rho
                 lam = lam + rho * cx_d
                 if new_viol > 0.25 * viol and new_viol > eq_tol:
@@ -385,28 +504,37 @@ def solve_equality_constrained(
                 with span("eq.record", phases):
                     metrics.log("outer", outer=outer + 1, viol=viol, rho=rho,
                                 inner_rho=rho_inner, inner_iters=int(result.iterations),
-                                f=np.asarray(problem.objective_np(x)).tolist(),
+                                f=np.asarray(objective(x64, counted=False)).tolist(),
                                 solve_secs=host.t0 - outer_span.t0, host_secs=host.secs)
             if checkpoint_path and checkpoint_every and (outer + 1) % checkpoint_every == 0:
-                save_state(checkpoint_path, {"lam": lam, "x": x},
+                x_ck = down(x_prev) if mesh is None else x_prev
+                save_state(checkpoint_path,
+                           {"lam": down(lam), "x": np.asarray(x_ck, np.float64)},
                            meta={"iteration": outer + 1, "rho": rho, "viol": viol,
                                  "total_iters": total_iters},
                            keep=checkpoint_keep, shard=None if mesh is None else shard_info())
         if ok_streak >= 2:
             break
+    # the final x on the host, once it is read back (None: still on the device)
+    x_host = None if mesh is None else x_prev
     if result is None:
         # no budget for a single outer (or a resume whose checkpoint already
         # spent it): the warm start or the checkpointed x (zeros without
         # either, as the reference) comes back as an honest
         # budget-exhausted result
-        x_ck = (np.asarray(x0, np.float64) if x0 is not None
-                else np.zeros((S, n) if multi else n))
+        x_host = np.asarray(x0, np.float64) if x0 is not None else np.zeros(lead + (n,))
         result = SolveResult(
-            x=x_ck, objective=problem.objective_np(x_ck),
+            x=x_host, objective=0.0,
             gap=np.inf, iterations=0, converged=False,
             trace_f=np.zeros(0), trace_gap=np.zeros(0),
             chunk_times=np.zeros(0), chunk_iters=np.zeros(0),
             stop_reason="budget_exhausted")
+    if refine > 0 or refine_tol is not None:
+        # the finishers work on the host: x and lam read back once, here
+        if x_host is None:
+            x_host = down(x_prev)
+        lam = down(lam)
+        x64 = None
 
     # refine=K: float64 augmented-Lagrangian finishing outers.  Each round
     # solves the CURRENT stacked subproblem to f64 precision with the
@@ -418,7 +546,7 @@ def solve_equality_constrained(
     # (oracle_solve_eq or refine_tol do that).  On a mesh the result is
     # already gathered on every rank, and the host float64 PCG polishes it.
     if refine > 0:
-        x = np.asarray(result.x, np.float64)
+        x = np.asarray(x_host, np.float64)
         # feasibility guard: the exact subproblem optimum can be LESS
         # feasible than the fp32 AL's iterate (the AL trades violation
         # against objective at finite rho): revert wholesale if the rounds
@@ -426,11 +554,11 @@ def solve_equality_constrained(
         x_before, lam_before, viol_before = x.copy(), lam.copy(), viol
         refine_wall = 0.0
         for _ in range(refine):
-            sr, b_stacked = stacked_rhs(rho)
+            sr, b_stacked = host_stacked_rhs(rho, lam)
             # no prepared operator when the budget ran out before any outer:
             # the host float64 PCG path polishes instead
             dp_pol = (None if mesh is not None or dp_cache is None
-                      else on_device(dp_cache, sr, b_stacked))
+                      else on_device(dp_cache, sr, up(b_stacked[..., m:])))
             seed = dc_replace(result, x=x)
             polished = refine_polish(stacked_problem(sr, b_stacked), dp_pol, seed, rounds=2)
             refine_wall += polished.refine_secs  # every round's wall counts
@@ -448,7 +576,8 @@ def solve_equality_constrained(
                 break
         if viol > viol_before:
             x, lam, viol = x_before, lam_before, viol_before
-        result = dc_replace(result, x=x, refine_secs=result.refine_secs + refine_wall)
+        x_host = x
+        result = dc_replace(result, refine_secs=result.refine_secs + refine_wall)
 
     # refine_tol: CERTIFIED refine.  Walk to the exact f64 KKT point with
     # prox_bpp_polish (warm from the AL iterate) and certify with the
@@ -458,7 +587,7 @@ def solve_equality_constrained(
     # way as ``refine_fw_gap`` — loose never means unsound.
     if refine_tol is not None:
         t_rt = time.perf_counter()
-        x_cur = np.asarray(result.x, np.float64)
+        x_cur = np.asarray(x_host, np.float64)
         lam_cert = lam
         bound = eq_dual_bound(problem, x_cur, lam_cert)
         if bound > refine_tol:
@@ -481,18 +610,21 @@ def solve_equality_constrained(
             if bound_fit < bound:
                 bound = bound_fit
         x_cur, lam, viol, bound = _from_rank0(mesh, x_cur, lam, viol, bound)
+        x_host = x_cur
         result = dc_replace(
-            result, x=x_cur,
-            refine_secs=result.refine_secs + (time.perf_counter() - t_rt))
+            result, refine_secs=result.refine_secs + (time.perf_counter() - t_rt))
         result.refine_fw_gap = float(bound)
 
     with span("eq.report", phases):
-        # report the ORIGINAL objective (not the augmented one)
-        x = np.asarray(result.x, np.float64)
-        result.objective = problem.objective_np(x)
+        # report the ORIGINAL objective (not the augmented one), in float64
+        # on the device; the last outer's x is read back here, once
+        if x_host is None:
+            x_host = down(x_prev)
+        result.x = x_host
+        result.objective = objective(up(x_host) if x64 is None else x64)
         result.iterations = total_iters
         result.eq_violation = viol
-        result.eq_lam = lam
+        result.eq_lam = down(lam) if isinstance(lam, torch.Tensor) else lam
         result.eq_rho = rho
         result.converged = bool(result.converged and viol <= eq_tol)
         if (not result.converged and total_iters >= max_iter

@@ -2053,7 +2053,7 @@ def phase_solve_eq(ctx):
               inner_iters=EQ_CROSS_ITERS, chunk=50)
     cache4 = {}
     on_card = bt.solve_equality_constrained(prob4, op_cache=cache4, device=DEV, **kw)
-    (dp4, rb, Lb, LCb, A4, C4), = cache4.values()
+    (dp4, rb, Lb, LCb, A4, C4, _), = cache4.values()
     key = op_cache_key(prob4, torch.float32, "pgd", "exact", "cpu")
     on_cpu = bt.solve_equality_constrained(
         prob4, op_cache={key: (_state_to(dp4, "cpu"), rb, Lb, LCb, A4, C4)}, device="cpu", **kw)

@@ -475,6 +475,158 @@ def test_al_refine_tol_on_a_small_grid_instance():
     assert (float(rt.objective) - orc.objective) / ref <= rt.refine_fw_gap + 1e-10
 
 
+# ------------------------------------------- the loop's float64 state on the device
+
+
+def _spy_inner(monkeypatch):
+    """Every inner solve's stacked RHS and x, as host arrays, in order."""
+    import bsls_tpu_torch.solvers.base as TB
+
+    calls, real = [], TB.solve
+
+    def spy(dp, **kw):
+        res = real(dp, **kw)
+        calls.append((dp.b.cpu().numpy().copy(), np.asarray(res.x.cpu().numpy()).copy()))
+        return res
+
+    monkeypatch.setattr(TB, "solve", spy)
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("scenarios", [1, 4])
+def test_device_state_equals_the_host_float64_loop(monkeypatch, scenarios, dtype):
+    """Outer for outer, the loop's float64 work on the device equals the
+    host numpy arithmetic recomputed from the same inner x at 1e-12
+    relative: the violation, the multipliers (through the stacked RHS that
+    the next inner solve receives, and the result's), the recorded and the
+    reported objectives; rho's growth decisions are the same."""
+    pt = small(tsyn, scenarios=scenarios)
+    calls, rec = _spy_inner(monkeypatch), Recorder()
+    eq_tol, growth = 1e-7, 4.0
+    res = TEQ.solve_equality_constrained(pt, dtype=dtype, tol=0.0, eq_tol=eq_tol, max_iter=240,
+                                         inner_iters=40, chunk=20, rho_growth=growth,
+                                         metrics=rec, device="cpu")
+    assert len(calls) == len(rec.outer) == 6
+    C, m = pt.C.data, pt.A.shape[0]
+    b, d = np.asarray(pt.b, np.float64), np.asarray(pt.d, np.float64)
+    d = np.broadcast_to(d, np.atleast_2d(b).shape[:-1] + d.shape[-1:]).reshape(
+        b.shape[:-1] + d.shape[-1:])
+    lam = np.zeros_like(d)
+    rho = 0.1 * float(np.mean(TL._col_norms_sq(pt.A))) / float(np.mean(TL._col_norms_sq(pt.C)))
+    viol, grew = np.inf, []
+
+    def close(got, want):
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
+
+    for (b_st, x), o in zip(calls, rec.outer):
+        bottom = np.sqrt(rho) * (d - lam / rho)
+        np.testing.assert_array_equal(b_st[..., :m], b.astype(b_st.dtype))
+        if dtype == torch.float64:
+            close(b_st[..., m:], bottom)
+        else:  # the float64 bottom, rounded once to float32
+            np.testing.assert_allclose(b_st[..., m:], bottom, rtol=2.0**-24,
+                                       atol=2.0**-24 * np.abs(bottom).max())
+        assert o["inner_rho"] == rho
+        x = x.astype(np.float64)
+        cx_d = np.atleast_2d(x) @ C.T - np.atleast_2d(d)
+        new_viol = float(np.abs(cx_d).max()) / max(1.0, float(np.abs(d).max()))
+        assert o["viol"] == pytest.approx(new_viol, rel=1e-12)
+        close(np.asarray(o["f"]), pt.objective_np(x))
+        lam = lam + rho * cx_d.reshape(lam.shape)
+        grew.append(new_viol > 0.25 * viol and new_viol > eq_tol)
+        rho = rho * growth if grew[-1] else rho
+        assert o["rho"] == rho
+        viol = new_viol
+    assert any(grew) and not all(grew)
+    close(res.eq_lam, lam)
+    assert res.eq_rho == rho and res.eq_violation == rec.outer[-1]["viol"]
+    np.testing.assert_array_equal(res.x, calls[-1][1])
+    close(np.asarray(res.objective), pt.objective_np(np.asarray(res.x, np.float64)))
+    assert isinstance(res.objective, float if scenarios == 1 else np.ndarray)
+
+
+@pytest.mark.parametrize("scenarios", [1, 3])
+def test_solve_takes_a_tensor_warm_start_as_its_array(scenarios):
+    """A warm start given as a tensor gives the same x, objective and trace,
+    bit for bit, as the same values as a numpy array; ``x_on_device`` hands
+    back the same x as a tensor."""
+    prob = tsyn.medium_sparse(num_blocks=40, m=160, seed=2)
+    if scenarios > 1:
+        prob = tsyn.with_scenarios(prob, scenarios, seed=1)
+    x0 = np.asarray(bt.solve(prob, device="cpu", max_iter=20, chunk=10).x, np.float64)
+    kw = dict(device="cpu", max_iter=40, chunk=20, tol=0.0, lipschitz=50.0)
+    want = bt.solve(prob, x0=x0, **kw)
+    for x0t in (torch.as_tensor(x0), torch.as_tensor(x0, dtype=torch.float32)):
+        got = bt.solve(prob, x0=x0t, **kw)
+        np.testing.assert_array_equal(got.x, want.x)
+        np.testing.assert_array_equal(got.objective, want.objective)
+        np.testing.assert_array_equal(got.trace_f, want.trace_f)
+        np.testing.assert_array_equal(got.trace_gap, want.trace_gap)
+    on_device = bt.solve(prob, x0=x0, x_on_device=True, **kw)
+    assert isinstance(on_device.x, torch.Tensor) and on_device.x.dtype == torch.float32
+    np.testing.assert_array_equal(on_device.x.numpy(), want.x)
+    with pytest.raises(ValueError, match="x_on_device"):
+        bt.solve(prob, x0=x0, x_on_device=True, refine=1, **kw)
+
+
+def test_a_cache_hit_computes_no_norms_and_no_float64_copies(monkeypatch):
+    """rho0's column norms and the float64 copies of A and C are made once
+    per instance and kept in the op_cache entry: a second request makes
+    neither; an entry handed in without them gets them once."""
+    pt = small(tsyn, scenarios=2)
+    made = {"norms": 0, "copies": 0}
+    real_norms, real_copy = TL._col_norms_sq, TEQ._f64_copy
+
+    def norms(M):
+        made["norms"] += 1
+        return real_norms(M)
+
+    def copy(M, dev):
+        made["copies"] += 1
+        return real_copy(M, dev)
+
+    monkeypatch.setattr(TL, "_col_norms_sq", norms)
+    monkeypatch.setattr(TEQ, "_f64_copy", copy)
+    kw = dict(tol=0.0, max_iter=60, inner_iters=30, chunk=30, device="cpu")
+    cache = {}
+    first = TEQ.solve_equality_constrained(pt, op_cache=cache, **kw)
+    assert made["norms"] > 0 and made["copies"] == 2
+    (entry,) = cache.values()
+    assert len(entry) == 7 and isinstance(entry[6], TEQ.EqInstance)
+    made.update(norms=0, copies=0)
+    again = TEQ.solve_equality_constrained(pt, op_cache=cache, **kw)
+    assert made == {"norms": 0, "copies": 0}
+    np.testing.assert_array_equal(again.x, first.x)
+    np.testing.assert_array_equal(again.eq_lam, first.eq_lam)
+    # a six-element entry (as callers build them) gets its instance once
+    (key,) = cache
+    cache[key] = entry[:6]
+    for _ in range(2):
+        TEQ.solve_equality_constrained(pt, op_cache=cache, **kw)
+    assert made == {"norms": 2, "copies": 2} and len(cache[key]) == 7
+
+
+@pytest.mark.parametrize("case", ["cold", "warm_sink"])
+def test_eq_host_bytes_counts_what_crosses(case):
+    """``counts["eq_host_bytes"]``: b and d up once, the warm start (lam0,
+    x0) up once, each outer's penalty scale up and violation down, and at
+    the end x, the multipliers and the objectives down; nothing else (a
+    record's objectives are not counted)."""
+    S, outers = 3, 3
+    pt = small(tsyn, scenarios=S)
+    n, (p, m) = pt.partition.n_flat, pt.C.shape[0:1] + pt.A.shape[0:1]
+    kw = dict(tol=0.0, max_iter=outers * 20, inner_iters=20, chunk=20, device="cpu")
+    b, d = np.asarray(pt.b), np.asarray(pt.d)
+    want = b.nbytes + d.astype(np.float64).nbytes + outers * (4 + 8) + S * (4 * n + 8 * p + 8)
+    if case == "warm_sink":
+        kw.update(lam0=np.ones(p), x0=np.asarray(pt.x_true), metrics=Recorder())
+        want += S * p * 8 + S * n * 4
+    res = TEQ.solve_equality_constrained(pt, **kw)
+    assert res.counts["outers"] == outers and res.x.dtype == np.float32
+    assert res.counts["eq_host_bytes"] == want, (res.counts["eq_host_bytes"], want, m)
+
+
 # ------------------------------------------------------------ rejections
 
 
