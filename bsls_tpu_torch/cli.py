@@ -95,7 +95,7 @@ def main(argv=None):
     from bsls_tpu_torch.models import Problem, synthetic
     from bsls_tpu_torch.models.synthetic import _CONFIGS
     from bsls_tpu_torch.ops.layout import DeviceBanded, resolve_device
-    from bsls_tpu_torch.solvers.base import DEFAULT_REFINE_ROUNDS, refine_polish
+    from bsls_tpu_torch.solvers.base import refine_polish, refine_rounds
     from bsls_tpu_torch.utils.config import load_config
     from bsls_tpu_torch.utils.metrics import MetricsWriter
     from bsls_tpu_torch.utils.profiling import trace
@@ -152,7 +152,7 @@ def main(argv=None):
                   metrics=mw if cfg.metrics_path and mesh is None else None,
                   checkpoint_path=cfg.checkpoint_path if mesh is None else None,
                   checkpoint_every=cfg.checkpoint_every, resume=cfg.resume)
-        rounds = cfg.refine or (DEFAULT_REFINE_ROUNDS if cfg.refine_tol is not None else 0)
+        rounds = refine_rounds(cfg.refine, cfg.refine_tol)
         with trace(cfg.profile_dir):
             if eq:
                 # the augmented-Lagrangian loop prepares its stacked operator

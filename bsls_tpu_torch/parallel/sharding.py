@@ -21,9 +21,10 @@ all-reduce over 'block' per product, and A^T r is then block-local.  Line
 search and gap inner products all-reduce likewise: the process groups in the
 DeviceProblem make ``matvec_ps``/``xdot``/... collective, so the SAME solver
 step functions run sharded and unsharded, and ``solve_sharded`` runs the same
-chunk loop as ``solve`` (``solvers/base.py::run_chunk_loop``).  Its one
-readback per chunk is an all-gather of (f, gap) over 'scenario', so every
-rank's stop rule sees every scenario and every rank stops at the same chunk.
+solve body as ``solve`` (``solvers/base.py::solve_on``) on a
+``MeshPlacement``.  Its one readback per chunk is an all-gather of (f, gap)
+over 'scenario', so every rank's stop rule sees every scenario and every
+rank stops at the same chunk.
 
 The stacked operator [A; s C] of the equality-constrained path shards like
 any other A: by column, each part takes the rank's columns; by row
@@ -50,11 +51,12 @@ import torch.distributed as dist
 from ..models.partition import BlockPartition
 from ..models.problem import DenseMatrix, EllMatrix, Problem, ScaledMatrix, VStackMatrix
 from ..ops import layout as L
+from ..solvers.base import route
 from .mesh import BLOCK_AXIS, ROW_AXIS, SCENARIO_AXIS
 
 __all__ = ["shard_problem", "shard_problem_rows", "shard_problem_2d", "interleave_stacked_rows",
            "with_rank_rhs", "inject_sharded", "to_host", "extract_sharded", "leaf_layout",
-           "solve_sharded"]
+           "MeshPlacement", "placement", "solve_sharded"]
 
 
 # ---------------- problem sharding ----------------
@@ -313,41 +315,76 @@ def leaf_layout(state, dp, mesh) -> list:
 # ---------------- the sharded solve ----------------
 
 
-def _resume(path: str, state, shard: dict):
-    """(state, meta) from the newest checkpoint of which every rank holds its
-    file (``meta["iteration"]`` its iteration); (state, {}) where there is
-    none.  Every rank lists its own files
-    and all take the same iteration, so a rank whose newest file is missing
-    (killed between the ranks' writes, or pruned by its own rotation) cannot
-    send the others another way.  A rank that cannot load its file makes
-    every rank raise, so no rank goes on alone into the warm-up's
-    collectives."""
-    from ..utils.checkpoint import checkpoint_files, load_state
+@dataclasses.dataclass
+class MeshPlacement:
+    """Where a solve runs, a mesh: this rank's slice of the problem (``dp``,
+    ``part``) and the answers ``solvers/base.py::solve_on`` asks of its
+    placement, as ``OneCard`` gives them for one device.  x0 goes in through
+    ``inject_sharded``; per-scenario tensors come back gathered over
+    'scenario' on every rank, and x through ``extract_sharded``; a
+    single-RHS result keeps its traces' scenario axis, as in the reference;
+    checkpoints are per rank; rank 0 alone writes the records; refine
+    polishes the gathered result with the host float64 PCG."""
 
-    world = dist.get_world_size()
-    mine = checkpoint_files(path, dist.get_rank() if world > 1 else None)
-    held = [None] * world
-    dist.all_gather_object(held, list(mine))
-    common = set(held[0]).intersection(*held[1:])
-    stamps = [k for k in common if k is not None]
-    if not stamps and None not in common:
-        return state, {}
-    meta = {}
-    try:
-        state, meta = load_state(mine[max(stamps) if stamps else None], state, shard=shard)
-        status = (int(meta.get("iteration", 0)), None)
-    except Exception as e:  # every rank hears of it below
-        status = (None, f"{type(e).__name__}: {e}")
-    statuses = [None] * world
-    dist.all_gather_object(statuses, status)
-    errors = [f"rank {r}: {err}" for r, (_, err) in enumerate(statuses) if err]
-    if errors:
-        raise ValueError(f"cannot resume from {path}: " + "; ".join(errors))
-    iterations = sorted({it for it, _ in statuses})
-    if len(iterations) > 1:
-        raise ValueError(f"cannot resume from {path}: the ranks' files hold iterations "
-                         f"{iterations}")
-    return state, meta
+    dp: L.DeviceProblem
+    part: BlockPartition
+    mesh: object
+    single_rhs: bool
+    refine_dp = None
+    squeeze = False
+    keep_x = False
+
+    @property
+    def multi(self) -> bool:
+        return not self.single_rhs
+
+    @property
+    def leader(self) -> bool:
+        return self.mesh.rank == 0
+
+    def check(self, callback, space: str, certify: int) -> None:
+        """The options of ``solve`` that a mesh does not run."""
+        if callback is not None:
+            raise ValueError("callback is not supported for mesh-sharded solves")
+        if space != "x":
+            raise ValueError("mesh-sharded solves support space='x' only")
+        if certify > 0:
+            raise ValueError("certify is not supported for mesh-sharded solves")
+
+    def inject(self, x0) -> tuple:
+        return inject_sharded(self.dp, self.part, x0, self.mesh)
+
+    def host(self, t: torch.Tensor, dim: int = 0) -> np.ndarray:
+        return to_host(t, self.mesh.groups[SCENARIO_AXIS], dim=dim)
+
+    def extract(self, xp) -> np.ndarray:
+        return extract_sharded(self.dp, self.part, xp, self.mesh)
+
+    def shard(self, state) -> dict:
+        return {"rank": dist.get_rank(), "world": dist.get_world_size(),
+                "mesh": dict(self.mesh.shape), "leaves": leaf_layout(state, self.dp, self.mesh)}
+
+
+def placement(problem, mesh, dtype=torch.float32, layout: str = "auto",
+              shard_rows: bool = False) -> MeshPlacement:
+    """This rank's slice of ``problem`` on ``mesh``: by column, by row
+    (``shard_rows``) or by tile (a mesh with ``row > 1``); or a pre-sharded
+    ``(dp, part, single_rhs)`` triple as it is."""
+    grid = mesh.shape[ROW_AXIS] > 1
+    if grid and shard_rows:
+        raise ValueError("use either a row>1 mesh axis (2-D) or shard_rows, not both")
+    if isinstance(problem, tuple):
+        if grid:
+            raise ValueError("pre-sharded solves do not support a 2-D grid")
+        dp, part, single_rhs = problem
+        return MeshPlacement(dp, part, mesh, single_rhs)
+    if grid:
+        dp, part = shard_problem_2d(problem, mesh, dtype=dtype)
+    elif shard_rows:
+        dp, part = shard_problem_rows(problem, mesh, dtype=dtype)
+    else:
+        dp, part = shard_problem(problem, mesh, dtype=dtype, layout=layout)
+    return MeshPlacement(dp, part, mesh, np.asarray(problem.b).ndim == 1)
 
 
 def solve_sharded(
@@ -379,7 +416,8 @@ def solve_sharded(
     (S, m) (S = 1 for a single right-hand side: x, objective and gap are
     squeezed again at the end, the traces keep their (1, iters) shape).
     Every rank of the mesh calls it with the same arguments and returns the
-    same full result.
+    same full result, with the same ``phases`` and ``counts`` as a solve on
+    one device.
 
     ``problem`` may be a pre-sharded ``(dp, part, single_rhs)`` triple from
     ``shard_problem`` (prepare once, then solve); ``lipschitz`` skips the
@@ -391,119 +429,6 @@ def solve_sharded(
 
     A ``Problem`` with equality constraints (``C``) runs the
     augmented-Lagrangian loop on the mesh (``solve_equality_constrained``
-    with ``mesh``): ``max_iter`` is then its total inner budget, and
-    ``stop_rule``, ``lipschitz``, ``layout`` other than "auto" and
-    ``verbose`` are rejected there."""
-    from ..solvers.base import (
-        DEFAULT_REFINE_ROUNDS, SolveOptions, SolveResult, _get_solver, _warm_up,
-        make_chunk_runner, power_lipschitz, power_lipschitz_z, refine_polish, run_chunk_loop,
-        uses_zspace,
-    )
-    from ..ops.projection import proj_blocks
-    from ..utils.checkpoint import save_state
-
-    if isinstance(problem, Problem) and problem.C is not None:
-        from ..solvers.eq_constrained import solve_equality_constrained
-
-        unsupported = {"stop_rule": stop_rule != "auto", "lipschitz": lipschitz is not None,
-                       "layout": layout != "auto", "verbose": verbose}
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise ValueError(f"equality-constrained solve does not support {bad}")
-        return solve_equality_constrained(
-            problem, method=method, tol=tol, max_iter=max_iter, chunk=chunk,
-            line_search=line_search, step_size=step_size, dtype=dtype, mesh=mesh,
-            lbfgs_mem=lbfgs_mem, x0=x0, metrics=metrics, checkpoint_path=checkpoint_path,
-            checkpoint_every=checkpoint_every, checkpoint_keep=checkpoint_keep,
-            resume=resume, shard_rows=shard_rows, refine=refine, refine_tol=refine_tol)
-    if refine_tol is not None and refine == 0:
-        refine = DEFAULT_REFINE_ROUNDS
-    if refine > 0 and not isinstance(problem, Problem):
-        raise ValueError(
-            "refine on a sharded solve needs the host Problem (the polish anchor is a "
-            "host float64 pass); pass the Problem, not a pre-sharded triple")
-    grid = mesh.shape[ROW_AXIS] > 1
-    if grid and shard_rows:
-        raise ValueError("use either a row>1 mesh axis (2-D) or shard_rows, not both")
-    if isinstance(problem, tuple):
-        if grid:
-            raise ValueError("pre-sharded solves do not support a 2-D grid")
-        dp, part, single_rhs = problem
-    else:
-        single_rhs = np.asarray(problem.b).ndim == 1
-        if grid:
-            dp, part = shard_problem_2d(problem, mesh, dtype=dtype)
-        elif shard_rows:
-            dp, part = shard_problem_rows(problem, mesh, dtype=dtype)
-        else:
-            dp, part = shard_problem(problem, mesh, dtype=dtype, layout=layout)
-    opts = SolveOptions(method=method, line_search=line_search, tol=tol, max_iter=max_iter,
-                        chunk=chunk, step_size=step_size, lbfgs_mem=lbfgs_mem)
-    solver = _get_solver(method)
-    rank, world = dist.get_rank(), dist.get_world_size()
-    sgroup = mesh.groups[SCENARIO_AXIS]
-
-    if lipschitz is not None:
-        L_est = float(lipschitz)
-    else:
-        # line_search="pava" builds the trial point in z-space and needs the
-        # z-curvature ||A D||^2
-        power = power_lipschitz_z if uses_zspace(method, line_search) else power_lipschitz
-        L_est = power(dp)
-    xp0 = None if x0 is None else inject_sharded(dp, part, x0, mesh)
-    state = solver.init(dp, L_est, opts, xp0=xp0)
-    run = make_chunk_runner(dp, solver, opts, L_est, chunk)
-
-    def shard_info(st):
-        return {"rank": rank, "world": world, "mesh": dict(mesh.shape),
-                "leaves": leaf_layout(st, dp, mesh)}
-
-    it = 0
-    if resume and checkpoint_path:
-        state, meta = _resume(checkpoint_path, state, shard_info(state))
-        it = int(meta.get("iteration", 0))
-    if it < max_iter:
-        _warm_up(dp.device, lambda: solver.step(dp, state, L_est, opts))
-
-    def after_chunk(it, chunks_done, st, f_last, rel, secs):
-        if metrics is not None and rank == 0:
-            metrics.log("chunk", iteration=it, f=f_last.tolist(), relgap=rel.tolist(),
-                        secs=secs)
-        if checkpoint_path and checkpoint_every and chunks_done % checkpoint_every == 0:
-            save_state(checkpoint_path, st, meta={"iteration": it}, keep=checkpoint_keep,
-                       shard=shard_info(st))
-        if verbose and rank == 0:
-            print(f"[sharded] iter {it}: f={f_last} relgap={rel}")
-
-    loop = run_chunk_loop(run, state, it, max_iter, chunk, tol, stop_rule, dp.device,
-                          lambda st: to_host(torch.stack([st.f, st.gap]), sgroup, dim=1),
-                          after_chunk)
-    state, it = loop.state, loop.iterations
-    if checkpoint_path and checkpoint_every:
-        save_state(checkpoint_path, state, meta={"iteration": it}, keep=checkpoint_keep,
-                   shard=shard_info(state))
-
-    # one final exact projection (feasibility of the returned x), then the
-    # host-side extraction through the gathers
-    x = extract_sharded(dp, part, proj_blocks(state.xp, dp.buckets), mesh)
-    if loop.traces_f:
-        trace_f = to_host(torch.cat(loop.traces_f, dim=1), sgroup)
-        trace_gap = to_host(torch.cat(loop.traces_g, dim=1), sgroup)
-    else:  # resumed at or past max_iter: nothing ran this call
-        trace_f = trace_gap = np.zeros((x.shape[0], 0), np.float32)
-    f = to_host(state.f, sgroup)
-    gap = to_host(state.gap, sgroup)
-    if single_rhs:  # the traces keep their scenario axis, as in the reference
-        x, f, gap = x[0], f[0], gap[0]
-    res = SolveResult(
-        x=x, objective=f, gap=gap, iterations=it, converged=loop.converged,
-        trace_f=trace_f, trace_gap=trace_gap, chunk_times=np.asarray(loop.chunk_times),
-        chunk_iters=np.asarray(loop.chunk_iters), stop_reason=loop.stopper.reason,
-        phases={"chunks": float(sum(loop.chunk_times))}, counts={"chunks": len(loop.chunk_times)},
-    )
-    if refine > 0:
-        # gather-and-polish: the result is already host-side; the host f64
-        # PCG path (dp=None) runs the tangent-space correction against the
-        # host Problem
-        res = refine_polish(problem, None, res, rounds=refine, target_rel_gap=refine_tol)
-    return res
+    with ``mesh``): ``max_iter`` is then its total inner budget, and the
+    options of ``solvers/base.py::EQ_REJECTS`` are rejected there."""
+    return route(**locals())  # every option above, by name

@@ -12,11 +12,13 @@ and runs a chunked solve on the device.
     res = ep.solve(B_batch)           # (S, m) batches are first-class
 
 The layout is fixed when the endpoint is built, by the width of the
-problem's own b (``prepare``'s ``layout="auto"``).  Every request still runs
-the power iteration of ``solve``.  On the card a request's chunks replay the
-CUDA graph captured for the endpoint's prepared problem at that batch width
-(``solvers/graph.py``): the first request of a width (or ``warmup``)
-captures it, and later ones replay it with their own b.
+problem's own b (``prepare``'s ``layout="auto"``).  ||A||^2 depends on A
+alone: the endpoint estimates it once, when it is built, and every request
+solves with that estimate (or the caller's ``lipschitz``).  On the card a
+request's chunks replay the CUDA graph captured for the endpoint's prepared
+problem at that batch width (``solvers/graph.py``): the first request of a
+width (or ``warmup``) captures it, and later ones replay it with their own
+b.
 
 An equality-constrained problem (``C``) is served by the augmented-Lagrangian
 loop: its stacked operator is prepared by the first request and kept in the
@@ -29,11 +31,11 @@ axis.
 
 On a mesh (``Endpoint(problem, mesh=...)``, every rank of the mesh builds
 the endpoint and makes the same calls): an unconstrained endpoint shards and
-uploads A once and estimates ||A||^2 once, with one collective power
-iteration, and each request uploads only the rank's scenarios of b; an eq
-endpoint's ``op_cache`` holds the sharded stacked operator after the first
-request.  A ``BatchQueue`` over a mesh endpoint of several processes lets
-rank 0 alone compose the batches and sends each to the other ranks.
+uploads A once, its ||A||^2 estimate is one collective power iteration, and
+each request uploads only the rank's scenarios of b; an eq endpoint's
+``op_cache`` holds the sharded stacked operator after the first request.  A
+``BatchQueue`` over a mesh endpoint of several processes lets rank 0 alone
+compose the batches and sends each to the other ranks.
 
 Counterpart of ``bsls_tpu/serving.py``.
 """
@@ -52,8 +54,7 @@ import torch
 from .models.problem import Problem
 from .ops import layout as L
 from .solvers.base import (
-    DEFAULT_REFINE_ROUNDS, SolveResult, power_lipschitz, power_lipschitz_z, refine_polish, solve,
-    uses_zspace,
+    OneCard, SolveResult, power_lipschitz, power_lipschitz_z, refine_rounds, solve_on, uses_zspace,
 )
 from .utils.profiling import span
 
@@ -106,33 +107,26 @@ class Endpoint:
             # the AL loop prepares its stacked operator at the first request
             # (on a mesh, each rank its tile of it)
             self._dp = None
-        elif mesh is not None:
+            return
+        if mesh is not None:
             from .parallel.sharding import shard_problem
 
-            # shard and upload A once; ||A||^2 (||A D||^2 for z-space
-            # trial steps) depends on A alone: one collective power
-            # iteration here, none per request
+            # shard and upload A once
             self._dp, self._part = shard_problem(problem, mesh, dtype=dtype,
                                                  equilibrate=equilibrate)
-            power = power_lipschitz_z if uses_zspace(method, line_search) else power_lipschitz
-            self._lip = power(self._dp)
         else:
             self._dp = L.prepare(problem, dtype=dtype, equilibrate=equilibrate,
                                  device=self.device, phases=self.build_phases)
+        # ||A||^2 (||A D||^2 for z-space trial steps, as solve chooses)
+        # depends on A alone: one power iteration per endpoint (collective
+        # on a mesh), the span ``bsls.power``, none per request
+        power = power_lipschitz_z if uses_zspace(method, line_search) else power_lipschitz
+        with span("power"):
+            self._lip = power(self._dp)
 
     @property
     def num_rows(self) -> int:
         return self._m
-
-    def _with_b(self, b: np.ndarray) -> L.DeviceProblem:
-        """The prepared problem with this request's b: uploaded as given,
-        then cast to float32 (as the reference) and put in the row order of
-        the row-nnz-bucketed layout on the device; on the host, the cast and
-        the gather of a (S, m) b cost more than the request's solve."""
-        dev_b = torch.from_numpy(np.ascontiguousarray(b)).to(self.device).to(torch.float32)
-        if self._dp.row_perm is not None:
-            dev_b = dev_b.index_select(-1, self._dp.row_perm)
-        return replace(self._dp, b=dev_b.to(self.dtype))
 
     def solve(
         self,
@@ -153,48 +147,40 @@ class Endpoint:
                 np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
                 return self._solve_eq(np.asarray(b, np_dtype), tol, max_iter, x0, **kw)
             # refine needs the host Problem (float64 anchor): the polish runs
-            # here, against this request's b, not inside solve(dp), which
-            # sees only the device problem
-            refine = int(kw.pop("refine", 0))
-            refine_tol = kw.pop("refine_tol", None)
-            if refine_tol is not None and refine <= 0:
-                refine = DEFAULT_REFINE_ROUNDS  # refine_tol alone must not skip the polish
-            if self.mesh is not None:
-                return self._solve_mesh(b, tol, max_iter, x0, refine, refine_tol, **kw)
+            # against this request's b
+            refine = refine_rounds(kw.pop("refine", 0), kw.get("refine_tol"))
+            host = replace(self._problem, b=np.asarray(b, np.float64)) if refine else None
+            if kw.get("lipschitz") is None and kw.get("space", "x") == "x":
+                kw["lipschitz"] = self._lip
             with span("upload") as up:
-                dp = self._with_b(b)
-            res = solve(dp, method=self.method, line_search=self.line_search, tol=tol,
-                        max_iter=max_iter, chunk=self.chunk, dtype=self.dtype, x0=x0, **kw)
+                place = self._placed(b)
+            res = solve_on(place, host, method=self.method, line_search=self.line_search,
+                           tol=tol, max_iter=max_iter, chunk=self.chunk, x0=x0, refine=refine,
+                           **kw)
             res.phases = {"upload": up.secs, **res.phases}
-            if refine > 0:
-                prob = replace(self._problem, b=np.asarray(b, np.float64))
-                with span("refine"):
-                    res = refine_polish(prob, dp, res, rounds=refine, target_rel_gap=refine_tol)
             return res
 
-    def _solve_mesh(self, b, tol, max_iter, x0, refine, refine_tol, **kw) -> SolveResult:
-        """A request on the mesh: this rank's scenarios of b uploaded into the
-        sharded problem, the solve with the endpoint's Lipschitz estimate, and
-        the gathered result polished on the host against this b."""
+    def _placed(self, b: np.ndarray):
+        """The prepared problem with this request's b, where it runs: on one
+        device uploaded as given, then cast to float32 (as the reference) and
+        put in the row order of the row-nnz-bucketed layout on the device (on
+        the host, the cast and the gather of a (S, m) b cost more than the
+        request's solve); on a mesh this rank's scenarios of b."""
+        if self.mesh is None:
+            dev_b = torch.from_numpy(np.ascontiguousarray(b)).to(self.device).to(torch.float32)
+            if self._dp.row_perm is not None:
+                dev_b = dev_b.index_select(-1, self._dp.row_perm)
+            return OneCard(replace(self._dp, b=dev_b.to(self.dtype)))
         from .parallel.mesh import SCENARIO_AXIS
-        from .parallel.sharding import solve_sharded, with_rank_rhs
+        from .parallel.sharding import MeshPlacement, with_rank_rhs
 
-        single = b.ndim == 1
         B = np.atleast_2d(b)
         ns = self.mesh.shape[SCENARIO_AXIS]
         if B.shape[0] % ns:
             raise ValueError(f"batch width {B.shape[0]} not divisible by the mesh's scenario "
                              f"axis ({ns}); pad the batch or use scenario=1")
-        dp = with_rank_rhs(self._dp, B, self.mesh)
-        res = solve_sharded((dp, self._part, single), self.mesh, method=self.method,
-                            line_search=self.line_search, tol=tol, max_iter=max_iter,
-                            chunk=self.chunk, dtype=self.dtype, x0=x0, lipschitz=self._lip,
-                            **kw)
-        if refine > 0:
-            prob = replace(self._problem, b=np.asarray(b, np.float64))
-            with span("refine"):
-                res = refine_polish(prob, None, res, rounds=refine, target_rel_gap=refine_tol)
-        return res
+        return MeshPlacement(with_rank_rhs(self._dp, B, self.mesh), self._part, self.mesh,
+                             b.ndim == 1)
 
     def _solve_eq(self, b, tol, max_iter, x0, **kw) -> SolveResult:
         from .solvers.eq_constrained import solve_eq_sensitivity, solve_equality_constrained

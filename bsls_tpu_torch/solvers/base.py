@@ -32,15 +32,16 @@ iterate, and ``refine=K`` / ``refine_tol=`` polish the result against a
 float64 anchor on the host (``refine_polish``; its correction is a batched
 fp32 CG on the device, or a float64 Jacobi-PCG on the host).
 
-A ``Problem`` with equality constraints (``C``) goes to the
-augmented-Lagrangian loop of ``solvers/eq_constrained.py``, whose inner
-solves are this chunk runner on the stacked operator [A; sqrt(rho) C].
-
-``mesh=`` (``parallel.make_mesh``) runs the same chunk loop on every rank
-of a ``torch.distributed`` mesh, each on its own slice of the problem
-(``parallel/sharding.py::solve_sharded``); every cross-shard reduction of a
-step goes through the collective products and inner products of
-``ops/layout.py``.
+``route`` decides once where a solve runs, for ``solve`` and
+``parallel.solve_sharded``.  A ``Problem`` with equality constraints (``C``)
+goes to the augmented-Lagrangian loop of ``solvers/eq_constrained.py``,
+whose inner solves are ``solve_on`` on the stacked operator [A; sqrt(rho)
+C].  Everything else runs ``solve_on``, one body for a placement:
+``OneCard``, or with ``mesh=`` (``parallel.make_mesh``) a
+``parallel/sharding.py::MeshPlacement``, every rank of a
+``torch.distributed`` mesh on its own slice of the problem; every
+cross-shard reduction of a step goes through the collective products and
+inner products of ``ops/layout.py``.
 
 Counterpart of ``bsls_tpu/solvers/base.py`` for all six solver families
 (``_get_solver``), certify, refine, checkpoint/resume, and the
@@ -63,14 +64,14 @@ from ..ops import layout as L
 from ..ops import ztransform as Z
 from ..ops.projection import proj_blocks
 from ..ops.simplex import block_min
-from ..utils.checkpoint import latest_checkpoint, load_state, save_state
+from ..utils.checkpoint import resume_state, save_state
 from ..utils.profiling import span
 
 PAIRWISE = ("afw", "pairwise", "pairwise_fw")
 
 __all__ = [
     "SolveOptions", "SolveResult", "StopTracker", "fw_gap", "power_lipschitz",
-    "power_lipschitz_z", "uses_zspace", "refine_polish", "solve",
+    "power_lipschitz_z", "uses_zspace", "refine_polish", "refine_rounds", "solve",
 ]
 
 # refine_tol without refine: the certified polish runs with this round cap
@@ -669,7 +670,7 @@ class ChunkLoop:
 def run_chunk_loop(run, state, it: int, max_iter: int, chunk: int, tol: float, stop_rule: str,
                    device: torch.device, readback: Callable[[Any], np.ndarray],
                    after_chunk: Optional[Callable] = None) -> ChunkLoop:
-    """The chunk loop of ``solve`` and of ``solve_sharded``: K steps enqueued
+    """The chunk loop of ``solve_on``: K steps enqueued
     without a host sync, then ONE readback of the end-of-chunk (f, gap) —
     ``readback(state)`` returns them as a (2, S) array of every scenario —
     which is also what closes the chunk's wall time.  The per-step traces
@@ -705,6 +706,129 @@ def run_chunk_loop(run, state, it: int, max_iter: int, chunk: int, tol: float, s
     return ChunkLoop(state, it, converged, stopper, traces_f, traces_g, ctimes, citers)
 
 
+def refine_rounds(refine, refine_tol) -> int:
+    """The polish's round cap: ``refine``, or ``DEFAULT_REFINE_ROUNDS``
+    where ``refine_tol`` is given alone (certified mode must not skip the
+    polish)."""
+    if refine_tol is not None and not refine:
+        return DEFAULT_REFINE_ROUNDS
+    return int(refine or 0)
+
+
+@dataclass
+class OneCard:
+    """Where a solve runs, one device: what ``solve_on`` asks of its
+    placement.  ``parallel/sharding.py::MeshPlacement`` answers the same
+    questions for a mesh.  ``keep_x`` leaves the result's x on the device,
+    as a tensor in the solve's dtype (the equality-constrained loop hands it
+    to its next inner solve)."""
+
+    dp: L.DeviceProblem
+    keep_x: bool = False
+    mesh = None
+    leader = True  # writes the records and the log lines
+
+    @property
+    def multi(self) -> bool:
+        return self.dp.b.ndim == 2
+
+    @property
+    def squeeze(self) -> bool:  # one RHS: the traces and records lose the scenario axis
+        return not self.multi
+
+    @property
+    def refine_dp(self):  # the polish's device CG runs here
+        return self.dp
+
+    def inject(self, x0) -> tuple:
+        """A user-flat warm start, (N,) or (S, N), numpy or a tensor on any
+        device, cast to the solve's dtype and moved to its device."""
+        dp = self.dp
+        if isinstance(x0, torch.Tensor):
+            x0t = x0.to(device=dp.device, dtype=dp.b.dtype)
+        else:
+            x0t = torch.as_tensor(np.asarray(x0), dtype=dp.b.dtype).to(dp.device)
+        return L.inject_user_flat(dp, x0t if self.multi else x0t[None])
+
+    def host(self, t: torch.Tensor, dim: int = 0) -> np.ndarray:
+        """A per-scenario tensor, whole, on the host."""
+        return t.cpu().numpy()
+
+    def extract(self, xp) -> np.ndarray | torch.Tensor:
+        x = L.extract_user_flat(self.dp, xp)
+        return x if self.keep_x else x.cpu().numpy()
+
+    def check(self, callback, space: str, certify: int) -> None:
+        """Every option of ``solve`` runs on one device."""
+
+    def shard(self, state) -> None:
+        """A checkpoint of one process: no shard."""
+        return None
+
+
+def place_problem(problem, mesh=None, shard_rows: bool = False, layout: str = "auto",
+                  device="cuda", dtype=torch.float32, keep_x: bool = False):
+    """Where a solve of ``problem`` runs: on ``mesh``, this rank's slice of
+    it (``parallel/sharding.py::placement``, which gathers x on the host);
+    else one device, where a host ``Problem`` is prepared (``keep_x``: see
+    ``OneCard``)."""
+    if mesh is not None:
+        from ..parallel.sharding import placement
+
+        return placement(problem, mesh, dtype=dtype, layout=layout, shard_rows=shard_rows)
+    if shard_rows:
+        raise ValueError("shard_rows=True needs a mesh")
+    if isinstance(problem, Problem):
+        problem = L.prepare(problem, dtype=dtype, layout=layout, device=device)
+    return OneCard(problem, keep_x=keep_x)
+
+
+# solve()'s options that the augmented-Lagrangian loop does not take, at the
+# values it runs with
+EQ_REJECTS = dict(space="x", callback=None, certify=0, lipschitz=None, stop_rule="auto",
+                  layout="auto", verbose=False)
+
+
+def route(problem, mesh=None, shard_rows: bool = False, layout: str = "auto", device="cuda",
+          dtype=torch.float32, **kw) -> SolveResult:
+    """Where a solve runs, decided once for ``solve`` and
+    ``parallel.solve_sharded``: a host ``Problem`` with ``C`` goes to the
+    augmented-Lagrangian loop (``EQ_REJECTS`` refused); anything else to
+    ``solve_on`` at its ``place_problem``, with ``refine_rounds`` of the
+    polish."""
+    if isinstance(problem, Problem) and problem.C is not None:
+        from .eq_constrained import solve_equality_constrained
+
+        kw["layout"] = layout
+        bad = [k for k, v in EQ_REJECTS.items() if kw.pop(k, v) != v]
+        if bad:
+            raise ValueError(
+                f"equality-constrained solve does not support {bad}; run the AL loop "
+                "manually via solvers.eq_constrained if needed")
+        return solve_equality_constrained(problem, mesh=mesh, shard_rows=shard_rows,
+                                          device=device, dtype=dtype, **kw)
+    host = problem if isinstance(problem, Problem) else None
+    kw["refine"] = refine_rounds(kw.get("refine"), kw.get("refine_tol"))
+    if kw["refine"] > 0 and host is None:
+        raise ValueError(
+            "refine requires a host Problem (the correction anchor is re-evaluated in "
+            "float64 on the host); pass the Problem, not a prepared or pre-sharded one")
+    _check_options(kw.get("method", "pgd"), kw.get("line_search", "exact"), kw.get("space", "x"))
+    place = place_problem(problem, mesh, shard_rows, layout, device, dtype)
+    return solve_on(place, host, **kw)
+
+
+def _check_options(method: str, line_search: str, space: str):
+    """The solver module of ``method``; raises on an unknown method, line
+    search or space."""
+    solver = _get_solver(method)
+    if line_search not in _LINE_SEARCHES:
+        raise ValueError(f"unknown line_search {line_search!r}; options: {_LINE_SEARCHES}")
+    if space not in ("x", "z"):
+        raise ValueError(f"unknown space {space!r}")
+    return solver
+
+
 def solve(
     problem: Problem | L.DeviceProblem,
     method: str = "pgd",
@@ -733,7 +857,6 @@ def solve(
     device="cuda",
     layout: str = "auto",
     shard_rows: bool = False,
-    x_on_device: bool = False,
 ) -> SolveResult:
     """Solve a block-simplex LSQ instance on one device, or on a mesh.
 
@@ -754,10 +877,7 @@ def solve(
     ||A||_2^2 bound (||A D||_2^2 for the z-space modes) for the 1/L trial
     step.  ``x0`` (N,) or (S, N) is a warm start in the user's ordering: a
     numpy array, or a tensor (on any device), cast to the solve's dtype and
-    moved to its device as the array would be.  ``x_on_device`` returns
-    ``x`` as a tensor on the solve's device, in its dtype, with no copy to
-    the host (the equality-constrained loop hands it to its next inner
-    solve); not with ``refine``.
+    moved to its device as the array would be.
 
     ``certify=K`` runs K pairwise-FW polish steps after the main solve to
     tighten the duality-gap certificate; the polished state replaces the
@@ -785,79 +905,55 @@ def solve(
     finishing outers and certified polish, the checkpoint options act per
     outer iteration, and the result carries ``eq_violation``, ``eq_lam`` and
     ``eq_rho``; with ``mesh`` (and ``shard_rows``) its inner solves run on the
-    mesh.  ``space``, ``callback``, ``certify``, ``lipschitz`` and a
-    ``stop_rule`` other than "auto" are rejected there.
+    mesh.  The options of ``EQ_REJECTS`` are rejected there.
     """
-    if isinstance(problem, Problem) and problem.C is not None:
-        from .eq_constrained import solve_equality_constrained
+    return route(**locals())  # every option above, by name
 
-        # the AL outer loop supports a subset of solve()'s surface: reject
-        # the rest loudly instead of silently ignoring it (the reference
-        # drops stop_rule; here it is rejected too)
-        unsupported = {
-            "space": space != "x", "callback": callback is not None,
-            "certify": certify > 0, "lipschitz": lipschitz is not None,
-            "stop_rule": stop_rule != "auto",
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise ValueError(
-                f"equality-constrained solve does not support {bad}; run the "
-                "AL loop manually via solvers.eq_constrained if needed")
-        return solve_equality_constrained(
-            problem, method=method, tol=tol, max_iter=max_iter, chunk=chunk,
-            line_search=line_search, step_size=step_size, dtype=dtype,
-            lbfgs_mem=lbfgs_mem, x0=x0, refine=refine, refine_tol=refine_tol,
-            metrics=metrics, checkpoint_path=checkpoint_path,
-            checkpoint_every=checkpoint_every, checkpoint_keep=checkpoint_keep,
-            resume=resume, mesh=mesh, shard_rows=shard_rows, device=device,
-        )
-    if refine_tol is not None and refine == 0:
-        # certified mode with no explicit round cap: default the cap instead
-        # of silently ignoring refine_tol
-        refine = DEFAULT_REFINE_ROUNDS
-    if refine > 0 and not isinstance(problem, Problem):
-        raise ValueError(
-            "refine requires a host Problem (the correction anchor is "
-            "re-evaluated in float64 on the host)")
-    if refine > 0 and x_on_device:
-        raise ValueError("x_on_device does not combine with refine, whose x is a host array")
-    if mesh is not None:
-        from ..parallel.sharding import solve_sharded
 
-        if callback is not None:
-            raise ValueError("callback is not supported for mesh-sharded solves")
-        if space != "x":
-            raise ValueError("mesh-sharded solves support space='x' only")
-        if certify > 0:
-            raise ValueError("certify is not supported for mesh-sharded solves")
-        return solve_sharded(
-            problem, mesh, method=method, tol=tol, max_iter=max_iter, chunk=chunk,
-            line_search=line_search, step_size=step_size, dtype=dtype, verbose=verbose,
-            metrics=metrics, checkpoint_path=checkpoint_path,
-            checkpoint_every=checkpoint_every, checkpoint_keep=checkpoint_keep,
-            resume=resume, shard_rows=shard_rows, x0=x0, stop_rule=stop_rule,
-            lbfgs_mem=lbfgs_mem, lipschitz=lipschitz, layout=layout, refine=refine,
-            refine_tol=refine_tol,
-        )
-    if shard_rows:
-        raise ValueError("shard_rows=True needs a mesh")
-    solver = _get_solver(method)
-    if line_search not in _LINE_SEARCHES:
-        raise ValueError(f"unknown line_search {line_search!r}; options: {_LINE_SEARCHES}")
-    if space not in ("x", "z"):
-        raise ValueError(f"unknown space {space!r}")
-    if isinstance(problem, Problem):
-        dp = L.prepare(problem, dtype=dtype, layout=layout, device=device)  # raises on Problem.C
-    else:
-        dp = problem
-
+def solve_on(
+    place,
+    problem: Optional[Problem] = None,
+    method: str = "pgd",
+    tol: float = 1e-6,
+    max_iter: int = 10_000,
+    chunk: int = 100,
+    line_search: str = "exact",
+    step_size: float = 0.0,
+    space: str = "x",
+    callback: Optional[Callable[[int, Any], None]] = None,
+    verbose: bool = False,
+    x0=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 0,
+    checkpoint_keep: int = 0,
+    resume: bool = False,
+    metrics=None,
+    stop_rule: str = "auto",
+    certify: int = 0,
+    lipschitz: Optional[float] = None,
+    lbfgs_mem: int = 8,
+    refine: int = 0,
+    refine_tol: Optional[float] = None,
+) -> SolveResult:
+    """The solve on a prepared problem, one body for one device and a mesh:
+    power iteration, init, resume, warm-up, the chunk loop, certify, the
+    result and refine.  ``place`` (``OneCard``, or
+    ``parallel/sharding.py::MeshPlacement``) holds the problem and answers
+    what differs: how x0 goes in, how per-scenario tensors and x come back to
+    the host, the checkpoint's shard and resume, and which rank writes the
+    records.  ``problem`` is the host ``Problem`` that ``refine`` rounds
+    (``refine_rounds``: the caller's) polish against.  The options are
+    ``solve``'s."""
+    dp = place.dp
+    solver = _check_options(method, line_search, space)
+    place.check(callback, space, certify)
+    if refine > 0 and place.keep_x:
+        raise ValueError("keep_x does not combine with refine, whose x is a host array")
     opts = SolveOptions(
         method=method, line_search=line_search, tol=tol,
         max_iter=max_iter, chunk=chunk, step_size=step_size, space=space,
         lbfgs_mem=lbfgs_mem,
     )
-    multi = dp.b.ndim == 2
     # host seconds of the phases between the syncs the solve makes anyway
     # (the power iteration's readback, the warm-up's synchronise, each
     # chunk's readback, the result's), and what it counted; the layout's
@@ -878,13 +974,7 @@ def solve(
             L_est = power(dp)
 
     with span("init", phases):
-        xp0 = None
-        if x0 is not None:
-            if isinstance(x0, torch.Tensor):
-                x0t = x0.to(device=dp.device, dtype=dp.b.dtype)
-            else:
-                x0t = torch.as_tensor(np.asarray(x0), dtype=dp.b.dtype).to(dp.device)
-            xp0 = L.inject_user_flat(dp, x0t if multi else x0t[None])
+        xp0 = None if x0 is None else place.inject(x0)
         state = solver.init(dp, L_est, opts, xp0=xp0)
 
         # fused-chunk fast path (small dense single-RHS instances, opt-in;
@@ -892,13 +982,11 @@ def solve(
         # same PGDState, so the chunk loop below is unchanged
         from .mega import make_mega_runner
 
-        mega_run = None if multi else make_mega_runner(dp, method, opts, L_est, chunk)
+        mega_run = None if dp.b.ndim == 2 else make_mega_runner(dp, method, opts, L_est, chunk)
         it = 0
         if resume and checkpoint_path:
-            ck = latest_checkpoint(checkpoint_path)
-            if ck:
-                state, meta = load_state(ck, state)
-                it = int(meta.get("iteration", 0))
+            state, meta = resume_state(checkpoint_path, state, place.shard(state))
+            it = int(meta.get("iteration", 0))
         run = mega_run
         if it < max_iter:
             if mega_run is not None:
@@ -909,24 +997,27 @@ def solve(
                 counts["captures"] += getattr(run, "captures", 0)
 
     def after_chunk(it, chunks_done, st, f_last, rel, secs):
-        if not multi:
+        if place.squeeze:
             f_last, rel = f_last[0], rel[0]
-        if metrics is not None:
+        if metrics is not None and place.leader:
             metrics.log("chunk", iteration=it, f=f_last.tolist(), relgap=rel.tolist(), secs=secs)
         if checkpoint_path and checkpoint_every and chunks_done % checkpoint_every == 0:
-            save_state(checkpoint_path, st, meta={"iteration": it}, keep=checkpoint_keep)
+            save_state(checkpoint_path, st, meta={"iteration": it}, keep=checkpoint_keep,
+                       shard=place.shard(st))
         if callback is not None:
             callback(it, st)
-        if verbose:
+        if verbose and place.leader:
             print(f"iter {it}: f={f_last} relgap={rel}")
 
     loop = run_chunk_loop(run, state, it, max_iter, chunk, tol, stop_rule, dp.device,
-                          lambda st: torch.stack([st.f, st.gap]).cpu().numpy(), after_chunk)
+                          lambda st: place.host(torch.stack([st.f, st.gap]), dim=1),
+                          after_chunk)
     state, it = loop.state, loop.iterations
     phases["chunks"] = float(sum(loop.chunk_times))
     counts["chunks"] = len(loop.chunk_times)
     if checkpoint_path and checkpoint_every:
-        save_state(checkpoint_path, state, meta={"iteration": it}, keep=checkpoint_keep)
+        save_state(checkpoint_path, state, meta={"iteration": it}, keep=checkpoint_keep,
+                   shard=place.shard(state))
 
     if certify and method not in PAIRWISE:
         # certificate polish: a short pairwise-FW phase from the current
@@ -952,20 +1043,20 @@ def solve(
 
     with span("result", phases):
         if loop.traces_f:
-            trace_f = torch.cat(loop.traces_f, dim=1).cpu().numpy()
-            trace_gap = torch.cat(loop.traces_g, dim=1).cpu().numpy()
-        else:  # max_iter <= 0, or resumed at or past it: nothing ran
-            trace_f = trace_gap = np.zeros((state.f.shape[0], 0), np.float32)
+            trace_f = place.host(torch.cat(loop.traces_f, dim=1))
+            trace_gap = place.host(torch.cat(loop.traces_g, dim=1))
         # one final exact projection: guarantees feasibility of the returned
         # x regardless of method (the z-space path can leave O(eps) negative
         # entries after the z->x difference map)
-        xp = proj_blocks(state.xp, dp.buckets)
-        x = L.extract_user_flat(dp, xp)
-        x = x if x_on_device else x.cpu().numpy()
-        f = state.f.cpu().numpy()
-        gap = state.gap.cpu().numpy()
-        if not multi:
-            x, f, gap, trace_f, trace_gap = x[0], f[0], gap[0], trace_f[0], trace_gap[0]
+        x = place.extract(proj_blocks(state.xp, dp.buckets))
+        f = place.host(state.f)
+        gap = place.host(state.gap)
+        if not loop.traces_f:  # max_iter <= 0, or resumed at or past it: nothing ran
+            trace_f = trace_gap = np.zeros((f.shape[0], 0), np.float32)
+        if not place.multi:
+            x, f, gap = x[0], f[0], gap[0]
+        if place.squeeze:
+            trace_f, trace_gap = trace_f[0], trace_gap[0]
     res = SolveResult(
         x=x,
         objective=f,
@@ -982,5 +1073,6 @@ def solve(
     )
     if refine > 0:
         with span("refine"):
-            res = refine_polish(problem, dp, res, rounds=refine, target_rel_gap=refine_tol)
+            res = refine_polish(problem, place.refine_dp, res, rounds=refine,
+                                target_rel_gap=refine_tol)
     return res

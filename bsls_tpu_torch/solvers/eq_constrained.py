@@ -32,8 +32,8 @@ of ``bsls_tpu/solvers/eq_constrained.py``.  One intended deviation:
 no positive weight (the reference clamps it at 1e-300).  The device half,
 ``solve_equality_constrained``, runs on one device or on a
 ``torch.distributed`` mesh (``mesh=``: the stacked operator sharded by
-column, or with ``shard_rows`` by row, each inner solve
-``parallel.solve_sharded``) and checkpoints at outer granularity.
+column, or with ``shard_rows`` by row), each inner solve ``base.solve_on``
+on the stacked operator's placement, and checkpoints at outer granularity.
 """
 from __future__ import annotations
 
@@ -41,14 +41,14 @@ import time
 import warnings
 from dataclasses import dataclass
 from dataclasses import replace as dc_replace
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from ..models.problem import DenseMatrix, Problem, ScaledMatrix, VStackMatrix
 from ..ops import layout as L
-from ..utils.checkpoint import latest_checkpoint, load_state, save_state
+from ..utils.checkpoint import resume_state, save_state
 from ..utils.profiling import span
 
 __all__ = ["solve_equality_constrained", "solve_eq_sensitivity",
@@ -71,21 +71,40 @@ def _violation(cx_d: np.ndarray, d: np.ndarray, p: int) -> float:
 
 @dataclass(frozen=True)
 class EqInstance:
-    """What the AL loop reads of an instance besides its stacked operator,
-    kept in the ``op_cache`` entry beside it: rho0's scales (the mean
-    squared column norms of A and of C) and float64 copies of A and C on
-    the loop's device, for C x and the reported objective."""
+    """An ``op_cache`` entry: what the AL loop keeps of an instance across
+    calls.  ``place`` is the prepared stacked operator where its inner
+    solves run (``base.OneCard``, or on a mesh this rank's tile in a
+    ``parallel.sharding.MeshPlacement``), prepared at penalty ``rho_base``
+    with the Lipschitz bound ``L_base`` there and ``LC`` = lam_max(C^T C);
+    ``A`` and ``C`` are the objects it was built from (their ids stay taken
+    while the entry lives, and it serves only them); rho0's scales (the mean
+    squared column norms of A and of C) and float64 copies of A and C on the
+    loop's device, for C x and the reported objective."""
 
+    place: Any
+    rho_base: float
+    L_base: float
+    LC: float
+    A: Any
+    C: Any
     a_scale: float
     c_scale: float
     A64: torch.Tensor
     C64: torch.Tensor
 
     @classmethod
-    def of(cls, problem: Problem, dev) -> "EqInstance":
-        return cls(a_scale=float(np.mean(L._col_norms_sq(problem.A))),
+    def of(cls, problem: Problem, dev, place=None, rho_base=0.0, L_base=0.0,
+           LC=0.0) -> "EqInstance":
+        """The entry of ``problem`` (its norms and float64 copies made here)
+        for the prepared ``place`` and its constants."""
+        return cls(place=place, rho_base=rho_base, L_base=L_base, LC=LC, A=problem.A,
+                   C=problem.C, a_scale=float(np.mean(L._col_norms_sq(problem.A))),
                    c_scale=float(np.mean(L._col_norms_sq(problem.C))) or 1.0,
                    A64=_f64_copy(problem.A, dev), C64=_f64_copy(problem.C, dev))
+
+    def serves(self, problem: Problem, mesh) -> bool:
+        """This entry was prepared from ``problem``'s A and C on ``mesh``."""
+        return self.A is problem.A and self.C is problem.C and self.place.mesh is mesh
 
 
 def _f64_copy(M, dev) -> torch.Tensor:
@@ -205,30 +224,30 @@ def solve_equality_constrained(
     ratio, the multiplier update and the stacked RHS's bottom part
     sqrt(rho) (d - lam/rho), cast into the stacked RHS there.  Per outer the
     host reads back the violation alone; rho's growth and the stop test are
-    taken on the host.  On one device x stays there from outer to outer
-    (``solve``'s tensor warm start and ``x_on_device``) and is read back once,
-    at the end; a mesh's inner solves take and give host arrays.
+    taken on the host.  Each inner solve is ``base.solve_on`` on the
+    stacked operator's placement, which says where x lives between outers:
+    on one device it stays there (``OneCard(keep_x=True)``) and is read back
+    once, at the end; a mesh's inner solves take and give host arrays.
 
     ``op_cache`` (a plain dict owned by the caller, keyed by
-    ``op_cache_key``) keeps the prepared stacked operator, its Lipschitz
-    constants and the instance's ``EqInstance`` ACROSS calls: repeat requests
-    against one instance skip the host re-encode, the upload, the power
-    iterations, rho0's column norms and the float64 copies.  An entry is
-    ``(prepared, rho_base, L_base, L_C, A, C, instance)`` (one handed in
-    without ``instance`` gets it at its first use): it keeps the A and C it
-    was prepared from, so that their ids are not reused while it lives, and
-    it is used only for those very objects.  The bound then
+    ``op_cache_key``) keeps the instance's ``EqInstance`` ACROSS calls: the
+    prepared stacked operator, its Lipschitz constants, rho0's column norms
+    and the float64 copies, so that repeat requests against one instance
+    skip the host re-encode, the upload, the power iterations, the norms and
+    the copies.  An entry keeps the A and C it was prepared from, so that
+    their ids are not reused while it lives, and it is used only for those
+    very objects.  The bound then
     updates analytically, lam_max(A^T A + rho C^T C) <= L(rho_base) +
     (rho - rho_base) lam_max(C^T C), in x- and z-space alike; the block
     equilibration stays that of the first outer's rho.
 
     ``mesh`` (``parallel.make_mesh``; every rank calls with the same
-    arguments and gets the same result) runs each inner solve with
-    ``parallel.solve_sharded`` on the stacked operator, sharded by column or,
-    with ``shard_rows``, by row (each part padded to the block axis on its
-    own, the stacked RHS interleaved).  ``prepared`` is then ``(dp, part,
-    mesh)``, this rank's tile, built once with its two collective power
-    iterations; each outer swaps the penalty scale and uploads the rank's
+    arguments and gets the same result) runs each inner solve on the stacked
+    operator sharded by column or, with ``shard_rows``, by row (each part
+    padded to the block axis on its own, the stacked RHS interleaved).  The
+    entry's ``place`` is then a ``parallel.sharding.MeshPlacement`` of this
+    rank's tile, built once with its two collective power iterations; each
+    outer swaps the penalty scale and uploads the rank's
     slice of the stacked RHS.  The loop's state (multipliers, rho,
     violation, stop streak, refine's guard) is rank 0's, broadcast after
     each update, so that every rank takes every decision alike.  A mesh with
@@ -267,33 +286,33 @@ def solve_equality_constrained(
     index, rho, the violation and the inner iterations so far in its meta;
     resume replays the multipliers and warm-starts the next outer.  On a mesh
     every rank writes its own file and a resume takes the newest outer that
-    every rank holds (``parallel/sharding.py``).  A checkpoint whose inner
-    iterations already meet ``max_iter`` comes back as its x with
-    ``stop_reason`` "budget_exhausted".
+    every rank holds (``utils/checkpoint.py::resume_state``).  A checkpoint
+    whose inner iterations already meet ``max_iter`` comes back as its x
+    with ``stop_reason`` "budget_exhausted".
     """
+    from ..parallel import sharding as SH
+    from ..parallel.mesh import BLOCK_AXIS, ROW_AXIS
     from .base import (
-        SolveResult, power_lipschitz, power_lipschitz_z, refine_polish, solve, uses_zspace,
+        SolveResult, place_problem, power_lipschitz, power_lipschitz_z, refine_polish, solve_on,
+        uses_zspace,
     )
 
     if problem.C is None:
         raise ValueError("problem has no equality constraints")
-    L.check_dtype(dtype, device if mesh is None else mesh.device)
-    if mesh is None and shard_rows:
-        raise ValueError("shard_rows requires a mesh")
-    if mesh is not None:
-        from ..parallel import sharding as SH
-        from ..parallel.mesh import BLOCK_AXIS, ROW_AXIS
-
+    if mesh is None:
+        L.check_dtype(dtype, device)
+        if shard_rows:
+            raise ValueError("shard_rows requires a mesh")
+        dev = L.resolve_device(device)
+    else:
+        L.check_dtype(dtype, mesh.device)
         if mesh.shape[ROW_AXIS] > 1:
             raise ValueError("pre-sharded solves do not support a 2-D grid: run the "
                              "equality-constrained loop on a mesh with row=1")
         dev = mesh.device
-    else:
-        dev = L.resolve_device(device)
 
     C = problem.C
     m, n = problem.A.shape
-    rank0 = mesh is None or mesh.rank == 0
     # host seconds by phase (the inner solves' summed in), the outers run and
     # the bytes the loop copies between host and device
     phases: dict = {}
@@ -312,10 +331,11 @@ def solve_equality_constrained(
         return t.cpu().numpy()
 
     def shard_info():
-        """A mesh rank's checkpoint: the whole host state, every leaf whole."""
-        import torch.distributed as dist
-
-        return {"rank": dist.get_rank(), "world": dist.get_world_size(),
+        """A mesh rank's checkpoint: the whole host state, every leaf whole
+        (None in one process)."""
+        if mesh is None:
+            return None
+        return {"rank": mesh.rank, "world": torch.distributed.get_world_size(),
                 "mesh": dict(mesh.shape),
                 "leaves": [[[0] * v.ndim, list(v.shape)] for _, v in sorted(ck_like.items())]}
 
@@ -329,35 +349,31 @@ def solve_equality_constrained(
         return Problem(A=VStackMatrix(top=problem.A, bottom=ScaledMatrix(C, sr_now)),
                        b=b_st, partition=problem.partition, name=problem.name + "+eq")
 
-    def on_device(dp, sr_now, bottom):
-        """The cached stacked operator with this penalty and the stacked RHS
-        [b; bottom] (on a mesh: this rank's slice of it, interleaved under
-        row sharding)."""
-        A_now = dc_replace(dp.A, bottom_scale=up(sr_now, dp.b.dtype))
+    def on_device(place, sr_now, bottom):
+        """The cached stacked operator's placement with this penalty and the
+        stacked RHS [b; bottom] (on a mesh: this rank's slice of it,
+        interleaved under row sharding, through the host)."""
+        A_now = dc_replace(place.dp.A, bottom_scale=up(sr_now, place.dp.b.dtype))
         if mesh is None:
             b_st[..., m:] = bottom
-            return dc_replace(dp, A=A_now, b=b_st)
-        b_up = np.atleast_2d(np.concatenate([b_host64, down(bottom)], axis=-1))
+            return dc_replace(place, dp=dc_replace(place.dp, A=A_now, b=b_st))
+        b_up = np.atleast_2d(np.concatenate([b_host, down(bottom)], axis=-1))
         if shard_rows:
             b_up = SH.interleave_stacked_rows(b_up[:, :m], b_up[:, m:], mesh.shape[BLOCK_AXIS])
         counts["eq_host_bytes"] += b_up.nbytes
-        return SH.with_rank_rhs(dc_replace(dp, A=A_now), b_up, mesh)
+        return dc_replace(place, dp=SH.with_rank_rhs(dc_replace(place.dp, A=A_now), b_up, mesh))
 
     def build(sr_now):
-        """The stacked operator, prepared (on a mesh: this rank's tile) with
-        its two power iterations: L at this rho, and lam_max(C^T C) on the
-        bottom part alone (the same equilibrated encoding, unit scale).  Its
-        RHS is zeros: every outer writes its own."""
+        """The stacked operator, prepared where the inner solves run (on a
+        mesh: this rank's tile) with its two power iterations: L at this
+        rho, and lam_max(C^T C) on the bottom part alone (the same
+        equilibrated encoding, unit scale).  Its RHS is zeros: every outer
+        writes its own."""
         stacked = stacked_problem(sr_now, np.zeros(lead + (m + p,), np.float32))
-        if mesh is None:
-            dp = L.prepare(stacked, dtype=dtype, device=dev)
-        elif shard_rows:
-            dp, part = SH.shard_problem_rows(stacked, mesh, dtype=dtype)
-        else:
-            dp, part = SH.shard_problem(stacked, mesh, dtype=dtype, layout="gather")
-        L_top = power(dp)
-        L_bot = power(dc_replace(dp, A=dp.A.bottom))
-        return (dp if mesh is None else (dp, part, mesh)), L_top, L_bot
+        place = place_problem(stacked, mesh, shard_rows, device=dev, dtype=dtype, keep_x=True)
+        L_top = power(place.dp)
+        L_bot = power(dc_replace(place.dp, A=place.dp.A.bottom))
+        return place, L_top, L_bot
 
     def objective(x64, counted: bool = True):
         """0.5 ||A x - b||^2 of each scenario in float64 on the device: (S,)
@@ -384,17 +400,11 @@ def solve_equality_constrained(
         if op_cache is None:
             op_cache = {}
         key = op_cache_key(problem, dtype, method, line_search, dev, mesh, shard_rows)
-        # an entry holds the A and C it was prepared from (and on a mesh the
-        # mesh): their ids stay taken while the entry lives, and an entry of
-        # other objects is not used
-        entry = op_cache.get(key)
-        if entry is not None and (entry[4] is not problem.A or entry[5] is not C
-                                  or (mesh is not None and entry[0][2] is not mesh)):
-            entry = None
-        dp_cache, rho_base, L_base, LC = (None,) * 4 if entry is None else entry[:4]
-        inst = entry[6] if entry is not None and len(entry) > 6 else EqInstance.of(problem, dev)
-        if entry is not None and len(entry) == 6:
-            op_cache[key] = (*entry, inst)
+        inst = op_cache.get(key)
+        if inst is None or not inst.serves(problem, mesh):
+            # rho0's scales and the float64 copies; the operator itself is
+            # built below, when an outer runs
+            inst = EqInstance.of(problem, dev)
 
         # scale rho by the ratio of squared column norms so the penalty term
         # is commensurate with the data term from the first outer iteration;
@@ -409,13 +419,8 @@ def solve_equality_constrained(
         ck_like = {"lam": np.zeros(lead + (p,)), "x": np.zeros(lead + (n,))}
 
         if resume and checkpoint_path:
-            if mesh is not None:
-                ck_state, meta = SH._resume(checkpoint_path, ck_like, shard_info())
-                ck_state = ck_state if meta else None  # {}: no checkpoint yet
-            else:
-                ck = latest_checkpoint(checkpoint_path)
-                ck_state, meta = load_state(ck, ck_like) if ck else (None, {})
-            if ck_state is not None:
+            ck_state, meta = resume_state(checkpoint_path, ck_like, shard_info())
+            if meta:
                 lam, x0 = ck_state["lam"], ck_state["x"]
                 rho = float(meta.get("rho", rho))
                 viol = float(meta.get("viol", viol))
@@ -427,12 +432,12 @@ def solve_equality_constrained(
         # z-space inners need the z-curvature; the analytic bound splits the
         # same way there, since D^T (A^T A + rho C^T C) D does
         power = power_lipschitz_z if uses_zspace(method, line_search) else power_lipschitz
-        if dp_cache is None and start_outer < outer_iters and total_iters < max_iter:
+        if inst.place is None and start_outer < outer_iters and total_iters < max_iter:
             # a miss: the first outer's stacked operator, prepared at its rho
             with span("eq.build"):
-                dp_cache, L_base, LC = build(np.sqrt(rho))
-            rho_base = rho
-            op_cache[key] = (dp_cache, rho_base, L_base, LC, problem.A, C, inst)
+                place, L_base, LC = build(np.sqrt(rho))
+            inst = dc_replace(inst, place=place, rho_base=rho, L_base=L_base, LC=LC)
+            op_cache[key] = inst
 
         # the loop's float64 state on the device: b as given (widened where
         # it is read), d and the multipliers
@@ -441,20 +446,18 @@ def solve_equality_constrained(
         if multi and d_dev.ndim == 1:
             d_dev = d_dev.expand(S, p)
         lam = torch.zeros(lead + (p,), dtype=torch.float64, device=dev) if lam is None else up(lam)
-        dp_one = dp_cache if mesh is None or dp_cache is None else dp_cache[0]
         x_prev = x0
-        if mesh is None and dp_one is not None:
+        if mesh is None and inst.place is not None:
             # the stacked RHS [b; sqrt(rho)(d - lam/rho)] of every outer, on
             # the device; the warm start goes there as solve's init takes it
-            b_st = torch.empty(lead + (m + p,), dtype=dp_one.b.dtype, device=dev)
+            b_st = torch.empty(lead + (m + p,), dtype=inst.place.dp.b.dtype, device=dev)
             b_st[..., :m] = b_dev
             if x0 is not None:
-                x_prev = up(x0, dp_one.b.dtype)
-        elif mesh is not None:
-            b_host64 = np.asarray(b_host, np.float64)
+                x_prev = up(x0, inst.place.dp.b.dtype)
 
     result = None
     x64 = None  # the last outer's x in float64 on the device
+    x_host = None  # the last outer's x on the host, where it comes back there
     ok_streak = 0
     inner_phases: dict = {}
     for outer in range(start_outer, outer_iters):
@@ -465,19 +468,13 @@ def solve_equality_constrained(
         with span("eq.outer") as outer_span:
             with span("eq.upload", phases):
                 sr = float(np.sqrt(rho))
-                dp_now = on_device(dp_one, sr, sr * (d_dev - lam / rho))
-            inner = dict(method=method, tol=tol, max_iter=this_inner, chunk=chunk,
-                         line_search=line_search, step_size=step_size, dtype=dtype,
-                         x0=x_prev,  # warm start from the previous outer iterate
-                         lbfgs_mem=lbfgs_mem, metrics=metrics,
-                         lipschitz=L_base + max(0.0, rho - rho_base) * LC)
-            if mesh is None:
-                result = solve(dp_now, x_on_device=True, **inner)
-            else:
-                if x_prev is not None:
-                    counts["eq_host_bytes"] += np.asarray(x_prev).nbytes
-                result = SH.solve_sharded((dp_now, dp_cache[1], not multi), mesh, **inner)
-                counts["eq_host_bytes"] += np.asarray(result.x).nbytes
+                place = on_device(inst.place, sr, sr * (d_dev - lam / rho))
+            if not place.keep_x and x_prev is not None:
+                counts["eq_host_bytes"] += np.asarray(x_prev).nbytes
+            result = solve_on(place, method=method, tol=tol, max_iter=this_inner, chunk=chunk,
+                              line_search=line_search, step_size=step_size, lbfgs_mem=lbfgs_mem,
+                              metrics=metrics, x0=x_prev,  # from the previous outer iterate
+                              lipschitz=inst.L_base + max(0.0, rho - inst.rho_base) * inst.LC)
             for k, v in result.phases.items():
                 inner_phases[k] = inner_phases.get(k, 0.0) + v
             for k, v in result.counts.items():
@@ -485,9 +482,15 @@ def solve_equality_constrained(
             counts["outers"] += 1
             with span("eq.host", phases) as host:
                 total_iters += result.iterations
-                # on one device x stays there for the next outer
+                # where the placement leaves x: on one device it stays there
+                # for the next outer; a mesh gathers it on the host
                 x_prev = result.x
-                x64 = (x_prev if mesh is None else up(x_prev, None)).to(torch.float64)
+                if place.keep_x:
+                    x64 = x_prev.to(torch.float64)
+                else:
+                    x_host = x_prev
+                    counts["eq_host_bytes"] += x_host.nbytes
+                    x64 = up(x_host, None).to(torch.float64)
                 cx_d = _times(inst.C64, x64.reshape(-1, n)).reshape(lam.shape) - d_dev
                 new_viol = float(down(cx_d.abs().amax())) / dref if p else 0.0
                 rho_inner = rho
@@ -500,23 +503,22 @@ def solve_equality_constrained(
                 # second pass lets the multiplier update settle the objective)
                 ok_streak = ok_streak + 1 if (viol <= eq_tol and result.converged) else 0
                 lam, rho, viol, ok_streak = _from_rank0(mesh, lam, rho, viol, ok_streak)
-            if metrics is not None and rank0:
+            if metrics is not None and place.leader:
                 with span("eq.record", phases):
                     metrics.log("outer", outer=outer + 1, viol=viol, rho=rho,
                                 inner_rho=rho_inner, inner_iters=int(result.iterations),
                                 f=np.asarray(objective(x64, counted=False)).tolist(),
                                 solve_secs=host.t0 - outer_span.t0, host_secs=host.secs)
             if checkpoint_path and checkpoint_every and (outer + 1) % checkpoint_every == 0:
-                x_ck = down(x_prev) if mesh is None else x_prev
                 save_state(checkpoint_path,
-                           {"lam": down(lam), "x": np.asarray(x_ck, np.float64)},
+                           {"lam": down(lam),
+                            "x": np.asarray(down(x_prev) if x_host is None else x_host,
+                                            np.float64)},
                            meta={"iteration": outer + 1, "rho": rho, "viol": viol,
                                  "total_iters": total_iters},
-                           keep=checkpoint_keep, shard=None if mesh is None else shard_info())
+                           keep=checkpoint_keep, shard=shard_info())
         if ok_streak >= 2:
             break
-    # the final x on the host, once it is read back (None: still on the device)
-    x_host = None if mesh is None else x_prev
     if result is None:
         # no budget for a single outer (or a resume whose checkpoint already
         # spent it): the warm start or the checkpointed x (zeros without
@@ -555,10 +557,11 @@ def solve_equality_constrained(
         refine_wall = 0.0
         for _ in range(refine):
             sr, b_stacked = host_stacked_rhs(rho, lam)
-            # no prepared operator when the budget ran out before any outer:
-            # the host float64 PCG path polishes instead
-            dp_pol = (None if mesh is not None or dp_cache is None
-                      else on_device(dp_cache, sr, up(b_stacked[..., m:])))
+            # no prepared operator when the budget ran out before any outer,
+            # and none for a mesh's gathered x: the host float64 PCG path
+            # polishes instead
+            dp_pol = (None if inst.place is None or inst.place.refine_dp is None
+                      else on_device(inst.place, sr, up(b_stacked[..., m:])).refine_dp)
             seed = dc_replace(result, x=x)
             polished = refine_polish(stacked_problem(sr, b_stacked), dp_pol, seed, rounds=2)
             refine_wall += polished.refine_secs  # every round's wall counts

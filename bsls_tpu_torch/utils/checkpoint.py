@@ -27,8 +27,8 @@ own slice of the state, with each leaf's global offset and global shape and
 the mesh's shape; in a world of more than one process the file of rank K is
 ``<stem>[.itNNNNNNNNN].procK.npz``.  A rank loads its own file and refuses
 one written on another mesh shape.  Which checkpoint to resume from is
-agreed by all ranks (``parallel/sharding.py``: the newest iteration that
-every rank holds a file of), so every rank resumes at the same iteration, and
+agreed by all ranks (``resume_state``: the newest iteration that every
+rank holds a file of), so every rank resumes at the same iteration, and
 a rank that cannot load its file makes every rank raise.
 
 Counterpart of ``bsls_tpu/utils/checkpoint.py``.
@@ -227,3 +227,45 @@ def latest_checkpoint(path: str) -> str | None:
     files = checkpoint_files(path)
     stamps = [k for k in files if k is not None]
     return files[max(stamps)] if stamps else files.get(None)
+
+
+def resume_state(path: str, like: Any, shard: dict | None = None):
+    """(state, meta) from the newest checkpoint for ``path`` loaded into the
+    structure of ``like`` (``meta["iteration"]`` its iteration); (like, {})
+    where there is none.
+
+    On a mesh (``shard`` given) it is the newest checkpoint of which every
+    rank holds its file.  Every rank lists its own files and all take the
+    same iteration, so a rank whose newest file is missing (killed between
+    the ranks' writes, or pruned by its own rotation) cannot send the others
+    another way.  A rank that cannot load its file makes every rank raise,
+    so no rank goes on alone into the warm-up's collectives."""
+    if shard is None:
+        ck = latest_checkpoint(path)
+        return load_state(ck, like) if ck else (like, {})
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    mine = checkpoint_files(path, dist.get_rank() if world > 1 else None)
+    held = [None] * world
+    dist.all_gather_object(held, list(mine))
+    common = set(held[0]).intersection(*held[1:])
+    stamps = [k for k in common if k is not None]
+    if not stamps and None not in common:
+        return like, {}
+    state, meta = like, {}
+    try:
+        state, meta = load_state(mine[max(stamps) if stamps else None], like, shard=shard)
+        status = (int(meta.get("iteration", 0)), None)
+    except Exception as e:  # every rank hears of it below
+        status = (None, f"{type(e).__name__}: {e}")
+    statuses = [None] * world
+    dist.all_gather_object(statuses, status)
+    errors = [f"rank {r}: {err}" for r, (_, err) in enumerate(statuses) if err]
+    if errors:
+        raise ValueError(f"cannot resume from {path}: " + "; ".join(errors))
+    iterations = sorted({it for it, _ in statuses})
+    if len(iterations) > 1:
+        raise ValueError(f"cannot resume from {path}: the ranks' files hold iterations "
+                         f"{iterations}")
+    return state, meta

@@ -1960,7 +1960,8 @@ def phase_solve_eq(ctx):
     """``solve_equality_constrained`` (pgd/exact inners) on traffic_like x 128
     at full width; then the first outer on the card against the CPU at S = 4
     with one set of Lipschitz constants."""
-    from bsls_tpu_torch.solvers.eq_constrained import op_cache_key
+    from bsls_tpu_torch.solvers.base import OneCard
+    from bsls_tpu_torch.solvers.eq_constrained import EqInstance, op_cache_key
     from bsls_tpu_torch.utils.profiling import profile_steps
 
     base, prob = ctx["eq_base"], ctx["eq_prob"]
@@ -1979,7 +1980,8 @@ def phase_solve_eq(ctx):
     # a new sqrt(rho), b and L every outer, one program for all of them
     check(graph["captures"] == 1, f"solve_eq: {graph['captures']} captures for "
           f"{len(rec.outer)} outers (one key)")
-    (dp, rho_base, L_base, LC, *_), = cache.values()
+    (inst,) = cache.values()
+    dp, rho_base, L_base, LC = inst.place.dp, inst.rho_base, inst.L_base, inst.LC
     S, n = EQ_SCENARIOS, prob.partition.n_flat
     check(res.x.shape == (S, n) and res.eq_lam.shape == (S, prob.C.shape[0]),
           f"solve_eq: x {res.x.shape}, eq_lam {res.eq_lam.shape}")
@@ -2053,10 +2055,12 @@ def phase_solve_eq(ctx):
               inner_iters=EQ_CROSS_ITERS, chunk=50)
     cache4 = {}
     on_card = bt.solve_equality_constrained(prob4, op_cache=cache4, device=DEV, **kw)
-    (dp4, rb, Lb, LCb, A4, C4, _), = cache4.values()
+    (inst4,) = cache4.values()
     key = op_cache_key(prob4, torch.float32, "pgd", "exact", "cpu")
-    on_cpu = bt.solve_equality_constrained(
-        prob4, op_cache={key: (_state_to(dp4, "cpu"), rb, Lb, LCb, A4, C4)}, device="cpu", **kw)
+    on_cpu_op = EqInstance.of(prob4, "cpu", place=OneCard(_state_to(inst4.place.dp, "cpu"),
+                                                          keep_x=True),
+                              rho_base=inst4.rho_base, L_base=inst4.L_base, LC=inst4.LC)
+    on_cpu = bt.solve_equality_constrained(prob4, op_cache={key: on_cpu_op}, device="cpu", **kw)
     rel = np.abs(on_card.trace_f - on_cpu.trace_f) / np.abs(on_cpu.trace_f)
     check(on_card.trace_f.shape == (4, EQ_CROSS_ITERS), "solve_eq: cross-check trace shape")
     check(float(rel.max()) <= 1e-3, f"solve_eq: the first outer's trace differs on the card and "
@@ -2088,7 +2092,8 @@ def phase_solve_eq_pava(ctx, max_iter=EQ_PAVA_ITERS, inner=EQ_PAVA_INNER):
     graph = graph_since(snap)
     check(graph["captures"] == 1, f"solve_eq_pava: {graph['captures']} captures for "
           f"{len(rec.outer)} outers (one key)")
-    (dp, rho_base, L_base, LC, *_), = cache.values()
+    (inst,) = cache.values()
+    dp, rho_base, L_base, LC = inst.place.dp, inst.rho_base, inst.L_base, inst.LC
     ctx["eq_pava_unsharded"] = {"outer": rec.outer, "objective": res.objective,
                                 "viol": res.eq_violation, "iterations": res.iterations,
                                 "consts": (rho_base, L_base, LC)}
@@ -2247,13 +2252,13 @@ def phase_serve(prob, base):
     check(counts["proj_simplex_rows"] >= len(reqs) * SERVE_ITERS,
           f"serve: proj_simplex_rows launched {counts['proj_simplex_rows']} times")
     # what a request pays outside its chunk loop, piece by piece: the upload
-    # of b, the power iteration, and the eager throwaway step that a request
-    # made before its chunks were captured (a warm endpoint's request makes
-    # none now)
-    dp_b = ep._with_b(reqs[0])
+    # of b, the power iteration (the endpoint's build makes it now, a request
+    # none), and the eager throwaway step that a request made before its
+    # chunks were captured (a warm endpoint's request makes none now)
+    dp_b = ep._placed(reqs[0]).dp
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    dp_b = ep._with_b(reqs[0])
+    dp_b = ep._placed(reqs[0]).dp
     torch.cuda.synchronize()
     upload_secs = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2474,8 +2479,8 @@ def phase_serve_eq(ctx, perturb=0.02, target=1e-6):
                   "serve_eq: non-finite result")
             check(len(ep_big._eq_ops) == 1, f"serve_eq: {len(ep_big._eq_ops)} op_cache entries")
             (now,) = ep_big._eq_ops.values()
-            check(entry is None or now[0] is entry, "serve_eq: request 2 re-prepared")
-            entry = now[0]
+            check(entry is None or now.place is entry, "serve_eq: request 2 re-prepared")
+            entry = now.place
             rows.append({"outers": len(inner), "iterations": res.iterations, "secs": secs,
                          "solve_secs": sum(inner),
                          "eq_violation": res.eq_violation, "stop_reason": res.stop_reason,
@@ -2962,14 +2967,14 @@ def eq_on_mesh(prob, mesh, rows, consts, **kw):
                                   max_iter=1, inner_iters=1, chunk=1)
     build_secs = time.perf_counter() - t0
     (key, entry), = cache.items()
-    cache[key] = (entry[0], *consts, entry[4], entry[5])
+    cache[key] = dataclasses.replace(entry, **dict(zip(("rho_base", "L_base", "LC"), consts)))
     rec = OuterRecords()
     reset_counts()
     t0 = time.perf_counter()
     res = bt.solve_equality_constrained(prob, mesh=mesh, shard_rows=rows, op_cache=cache,
                                         metrics=rec, **kw)
     secs = time.perf_counter() - t0
-    return res, rec.outer, entry[0][0], build_secs, read_counts(), secs
+    return res, rec.outer, entry.place.dp, build_secs, read_counts(), secs
 
 
 def _outer_rel(outer, want):

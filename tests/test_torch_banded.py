@@ -29,6 +29,7 @@ from bsls_tpu_torch.models import synthetic as tsyn
 from bsls_tpu_torch.ops import pagekernels
 from bsls_tpu_torch.solvers.base import power_lipschitz
 from torch_port_helpers import KERNELS, flatten_device_problem, small_instance
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _pair(scenarios=1, **kw):

@@ -23,6 +23,7 @@ import bsls_tpu_torch.ops.layout as TL
 import bsls_tpu_torch.utils.checkpoint as TCK
 from bsls_tpu_torch.models import synthetic as tsyn
 from bsls_tpu_torch.solvers.base import SolveOptions, _get_solver, power_lipschitz
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

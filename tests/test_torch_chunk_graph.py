@@ -36,6 +36,7 @@ from bsls_tpu_torch.models import synthetic as tsyn
 from bsls_tpu_torch.models.problem import Problem, ScaledMatrix, VStackMatrix
 from bsls_tpu_torch.utils.checkpoint import latest_checkpoint, load_state, save_state
 from torch_port_helpers import flatten_state, small_instance
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # float64 on both sides: the PGD traces agree to rounding
 F64_RTOL = 1e-9

@@ -27,6 +27,7 @@ from bsls_tpu.parallel import solve_sharded as jsolve_sharded
 from bsls_tpu_torch.models import synthetic as tsyn
 from bsls_tpu_torch.solvers import base as TB
 from torch_port_helpers import DTYPES, FAMILIES, LAYOUTS, WORLD_ITERS, World, mesh_instance
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 F32_RTOL = {"pgd": 5e-4, "apgd": 5e-4, "lbfgs": 5e-4, "eg": 2e-2, "frank_wolfe": 2e-2,
             "afw": 2e-2, "rows_dense": 5e-4, "rows_ell": 5e-4, "grid": 5e-4, "banded": 5e-4,

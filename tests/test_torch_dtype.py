@@ -15,6 +15,7 @@ import bsls_tpu_torch as bt
 from bsls_tpu_torch import cli
 from bsls_tpu_torch.ops import layout as TL
 from torch_port_helpers import KERNELS
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _no_cuda_call(monkeypatch):

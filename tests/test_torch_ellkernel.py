@@ -26,6 +26,7 @@ from bsls_tpu_torch.models.partition import BlockPartition
 from bsls_tpu_torch.models.problem import ScaledMatrix, VStackMatrix
 from bsls_tpu_torch.ops import cudalib, ellkernels
 from bsls_tpu_torch.ops.ellkernels import MAX_GROUPS, THREADS, ell_launches, ell_plan
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(REPO, "bsls_tpu_torch", "csrc", "ell_products.cu")

@@ -22,6 +22,7 @@ import bsls_tpu.ops.layout as JL
 import bsls_tpu.solvers.eq_constrained as JEQ
 import bsls_tpu_torch as bt
 import bsls_tpu_torch.ops.layout as TL
+import bsls_tpu_torch.solvers.base as TB
 import bsls_tpu_torch.solvers.eq_constrained as TEQ
 from bsls_tpu.models import problem as jprob
 from bsls_tpu.models import synthetic as jsyn
@@ -30,6 +31,7 @@ from bsls_tpu_torch.convert import al_state_from_numpy, device_problem_from_nump
 from bsls_tpu_torch.models import problem as tprob
 from bsls_tpu_torch.models import synthetic as tsyn
 from torch_port_helpers import KERNELS, flatten_device_problem
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # float64 on both sides, the same numpy/scipy code: host results agree to
 # rounding of sums taken in the same order
@@ -338,9 +340,10 @@ def _al_pair(pt, pj, f64, method="pgd", line_search="exact", **kw):
                                              **common)
         (dpj, rho_base, L_base, LC), = jcache.values()
         d = flatten_device_problem(dpj)
-    tcache = {TEQ.op_cache_key(pt, tdt, method, line_search, "cpu"): (
-        device_problem_from_numpy(d, device="cpu", dtype=tdt), rho_base, float(L_base),
-        float(LC), pt.A, pt.C)}
+    dp = device_problem_from_numpy(d, device="cpu", dtype=tdt)
+    tcache = {TEQ.op_cache_key(pt, tdt, method, line_search, "cpu"): TEQ.EqInstance.of(
+        pt, "cpu", place=TB.OneCard(dp, keep_x=True), rho_base=rho_base,
+        L_base=float(L_base), LC=float(LC))}
     res = TEQ.solve_equality_constrained(pt, dtype=tdt, op_cache=tcache, metrics=mt,
                                          device="cpu", **common)
     return res, ref, mt.outer, mj.outer
@@ -366,7 +369,7 @@ def test_op_cache_entry_serves_only_the_operator_it_was_prepared_from(monkeypatc
     assert len(prepared) == 1
     np.testing.assert_array_equal(again.x, first.x)
     (entry,) = cache.values()
-    assert entry[4] is pt.A and entry[5] is pt.C
+    assert entry.A is pt.A and entry.C is pt.C
     # the same entry under the other instance's key
     stale = {TEQ.op_cache_key(other, torch.float32, "pgd", "exact", "cpu"): entry}
     got = TEQ.solve_equality_constrained(other, op_cache=stale, **kw)
@@ -374,7 +377,7 @@ def test_op_cache_entry_serves_only_the_operator_it_was_prepared_from(monkeypatc
     assert len(prepared) == 3
     np.testing.assert_array_equal(got.x, want.x)
     (fresh,) = stale.values()
-    assert fresh[4] is other.A and fresh[5] is other.C
+    assert fresh.A is other.A and fresh.C is other.C
 
 
 @pytest.mark.parametrize("scenarios", [1, 3])
@@ -482,14 +485,14 @@ def _spy_inner(monkeypatch):
     """Every inner solve's stacked RHS and x, as host arrays, in order."""
     import bsls_tpu_torch.solvers.base as TB
 
-    calls, real = [], TB.solve
+    calls, real = [], TB.solve_on
 
-    def spy(dp, **kw):
-        res = real(dp, **kw)
-        calls.append((dp.b.cpu().numpy().copy(), np.asarray(res.x.cpu().numpy()).copy()))
+    def spy(place, *args, **kw):
+        res = real(place, *args, **kw)
+        calls.append((place.dp.b.cpu().numpy().copy(), np.asarray(res.x.cpu().numpy()).copy()))
         return res
 
-    monkeypatch.setattr(TB, "solve", spy)
+    monkeypatch.setattr(TB, "solve_on", spy)
     return calls
 
 
@@ -549,8 +552,9 @@ def test_device_state_equals_the_host_float64_loop(monkeypatch, scenarios, dtype
 @pytest.mark.parametrize("scenarios", [1, 3])
 def test_solve_takes_a_tensor_warm_start_as_its_array(scenarios):
     """A warm start given as a tensor gives the same x, objective and trace,
-    bit for bit, as the same values as a numpy array; ``x_on_device`` hands
-    back the same x as a tensor."""
+    bit for bit, as the same values as a numpy array; the solve body on a
+    placement that keeps x on the device (as the equality-constrained loop's
+    inner solves run) hands back the same x as a tensor."""
     prob = tsyn.medium_sparse(num_blocks=40, m=160, seed=2)
     if scenarios > 1:
         prob = tsyn.with_scenarios(prob, scenarios, seed=1)
@@ -563,17 +567,20 @@ def test_solve_takes_a_tensor_warm_start_as_its_array(scenarios):
         np.testing.assert_array_equal(got.objective, want.objective)
         np.testing.assert_array_equal(got.trace_f, want.trace_f)
         np.testing.assert_array_equal(got.trace_gap, want.trace_gap)
-    on_device = bt.solve(prob, x0=x0, x_on_device=True, **kw)
+    place = TB.OneCard(TL.prepare(prob, device="cpu"), keep_x=True)
+    body_kw = {k: v for k, v in kw.items() if k != "device"}
+    on_device = TB.solve_on(place, x0=x0, **body_kw)
     assert isinstance(on_device.x, torch.Tensor) and on_device.x.dtype == torch.float32
     np.testing.assert_array_equal(on_device.x.numpy(), want.x)
-    with pytest.raises(ValueError, match="x_on_device"):
-        bt.solve(prob, x0=x0, x_on_device=True, refine=1, **kw)
+    with pytest.raises(ValueError, match="keep_x"):
+        TB.solve_on(place, prob, x0=x0, refine=1, **body_kw)
 
 
 def test_a_cache_hit_computes_no_norms_and_no_float64_copies(monkeypatch):
     """rho0's column norms and the float64 copies of A and C are made once
     per instance and kept in the op_cache entry: a second request makes
-    neither; an entry handed in without them gets them once."""
+    neither; an entry a caller builds (``EqInstance.of``) makes them once,
+    there."""
     pt = small(tsyn, scenarios=2)
     made = {"norms": 0, "copies": 0}
     real_norms, real_copy = TL._col_norms_sq, TEQ._f64_copy
@@ -593,18 +600,20 @@ def test_a_cache_hit_computes_no_norms_and_no_float64_copies(monkeypatch):
     first = TEQ.solve_equality_constrained(pt, op_cache=cache, **kw)
     assert made["norms"] > 0 and made["copies"] == 2
     (entry,) = cache.values()
-    assert len(entry) == 7 and isinstance(entry[6], TEQ.EqInstance)
+    assert isinstance(entry, TEQ.EqInstance) and entry.place.keep_x
     made.update(norms=0, copies=0)
     again = TEQ.solve_equality_constrained(pt, op_cache=cache, **kw)
     assert made == {"norms": 0, "copies": 0}
     np.testing.assert_array_equal(again.x, first.x)
     np.testing.assert_array_equal(again.eq_lam, first.eq_lam)
-    # a six-element entry (as callers build them) gets its instance once
+    # an entry built by a caller around the prepared operator
     (key,) = cache
-    cache[key] = entry[:6]
+    cache[key] = TEQ.EqInstance.of(pt, "cpu", place=entry.place, rho_base=entry.rho_base,
+                                   L_base=entry.L_base, LC=entry.LC)
+    assert made == {"norms": 2, "copies": 2}
     for _ in range(2):
         TEQ.solve_equality_constrained(pt, op_cache=cache, **kw)
-    assert made == {"norms": 2, "copies": 2} and len(cache[key]) == 7
+    assert made == {"norms": 2, "copies": 2} and cache[key].place is entry.place
 
 
 @pytest.mark.parametrize("case", ["cold", "warm_sink"])

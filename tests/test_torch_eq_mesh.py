@@ -18,6 +18,8 @@ dtype): the float64 reference run here takes the warm start at the
 problem's dtype (a patch of this test process only; float32 runs are
 unchanged by it).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +41,7 @@ from bsls_tpu_torch.parallel import mesh as TM
 from bsls_tpu_torch.parallel import sharding as TS
 from torch_port_helpers import (EQ_MESH_CASES, EQ_MESH_ITERS, World, eq_mesh_instance,
                                 flatten_device_problem, stacked_tile)
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # float64 on both sides, the same stacked tiles and Lipschitz pair: the AL
 # traces agree to the rounding of sums taken in another order
@@ -163,7 +166,8 @@ def world_of_one():
 def _with_constants(cache, entry):
     """``cache``'s one entry with the Lipschitz pair of ``entry``."""
     (key, mine), = cache.items()
-    cache[key] = (mine[0], entry[1], entry[2], entry[3], mine[4], mine[5])
+    cache[key] = dataclasses.replace(mine, rho_base=entry.rho_base, L_base=entry.L_base,
+                                     LC=entry.LC)
     return cache
 
 

@@ -25,6 +25,7 @@ from bsls_tpu_torch.ops.chunkkernel import (RESIDENT_MAX_BYTES, STATE_MAX_BYTES,
                                             pgd_chunk_carried_plain, pgd_chunk_plain)
 from bsls_tpu_torch.ops.pagekernels import GRMV_PATHS, grmv_path
 from bsls_tpu_torch.solvers.base import power_lipschitz
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "bsls_tpu_torch", "csrc")

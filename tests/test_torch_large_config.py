@@ -24,6 +24,7 @@ import torch
 
 import bsls_tpu_torch as bt
 from bsls_tpu_torch.solvers.base import power_lipschitz
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BENCH = Path(__file__).resolve().parents[1] / "perfbench"
 SEED = 2**31 + 4099
@@ -45,14 +46,6 @@ def _load(rel: str):
 
 RP = _load("reference/pgd.py")
 INST = _load("harness/instances.py")
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _instance(shape: str):

@@ -19,6 +19,7 @@ from bsls_tpu_torch.models import synthetic as tsyn
 from bsls_tpu_torch.ops.chunkkernel import pgd_chunk, pgd_chunk_plain
 from bsls_tpu_torch.solvers.base import SolveOptions, power_lipschitz
 from torch_port_helpers import KERNELS
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SMALL = dict(seed=0, num_blocks=40, dim=8, m=320)
 

@@ -13,6 +13,7 @@ import bsls_tpu_torch.ops.layout as TL
 from bsls_tpu.models import synthetic as jsyn
 from bsls_tpu_torch.models import synthetic as tsyn
 from torch_port_helpers import flatten_device_problem, small_instance
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 GENERATORS = {
     "tiny_dense": lambda s: s.tiny_dense(seed=5, num_blocks=10, dim=4, m=40),

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from torch_port_helpers import KERNELS
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the float64 host work of a CLI child (oracles, the AL multiplier update) in
@@ -236,7 +237,7 @@ def test_equality_constrained_problem_raises():
 
 def _cli(*args):
     return subprocess.run([sys.executable, "-m", "bsls_tpu_torch", *args], cwd=REPO,
-                          capture_output=True, text=True)
+                          capture_output=True, text=True, env={**os.environ, **ONE_BLAS_THREAD})
 
 
 def test_cli_runs_on_the_cpu_and_counts_no_launch():

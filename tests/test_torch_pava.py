@@ -23,6 +23,7 @@ from bsls_tpu_torch.utils.refimpl import (
     pava_blocks_np, pava_np, x_to_z_np, z_to_x_np,
 )
 from torch_port_helpers import KERNELS
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # tolerance of tests/test_pallas.py: prefix-sum differences in fp32
 ATOL = 3e-5

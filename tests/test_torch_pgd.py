@@ -18,6 +18,7 @@ import bsls_tpu_torch.solvers.pgd as TP
 from bsls_tpu.models import synthetic as jsyn
 from bsls_tpu_torch.convert import device_problem_from_numpy, state_from_numpy
 from torch_port_helpers import flatten_device_problem, flatten_state, small_instance
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # fp32 on both sides, sums in another order; f and gap are sums over m and n
 RTOL = 1e-4

@@ -20,6 +20,7 @@ from bsls_tpu_torch.ops import rowkernels
 from bsls_tpu_torch.ops.projection import proj_blocks, proj_simplex_padded
 from bsls_tpu_torch.utils.refimpl import proj_blocks_np, proj_simplex_np
 from torch_port_helpers import KERNELS
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # tolerance of tests/test_pallas.py: the Pallas kernel bisects in fp32
 ATOL = 3e-5

@@ -20,6 +20,7 @@ from bsls_tpu.models import synthetic as jsyn
 from bsls_tpu_torch.convert import device_problem_from_numpy
 from bsls_tpu_torch.models import synthetic as tsyn
 from torch_port_helpers import flatten_device_problem, small_instance
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _relgap(f, fstar):

@@ -16,8 +16,10 @@ import bsls_tpu_torch as bt
 import bsls_tpu_torch.serving as TS
 from bsls_tpu.models import synthetic as jsyn
 from bsls_tpu_torch.models import synthetic as tsyn
+from bsls_tpu_torch.solvers import base as TB
 from bsls_tpu_torch.solvers import eq_constrained as TEQ
 from bsls_tpu_torch.solvers.base import DEFAULT_REFINE_ROUNDS, SolveResult, power_lipschitz
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # fp32 solves of one instance with one Lipschitz constant: final objectives
 # relative to max(1, |f|), the repo's measure (the reference's own serving
@@ -101,6 +103,30 @@ def test_endpoint_batch_and_warm_start():
     ref = JS.Endpoint(jsyn.medium_sparse(seed=2, num_blocks=60, m=400), method="pgd",
                       chunk=100).solve(B, tol=1e-7, max_iter=2000, lipschitz=lip)
     np.testing.assert_allclose(res.objective, np.asarray(ref.objective), rtol=0, atol=OBJ_TOL)
+
+
+@pytest.mark.parametrize("line_search", ["exact", "pava"])
+def test_endpoint_estimates_lipschitz_once(monkeypatch, line_search):
+    """||A||^2 (||A D||^2 for pava's z-space trial step) depends on A alone:
+    the endpoint's build estimates it, its requests run no power iteration,
+    and each answer is, bit for bit, a direct solve's with that estimate."""
+    pt = tsyn.tiny_dense(seed=3, num_blocks=20, dim=6, m=150)
+    ep = TS.Endpoint(pt, method="pgd", line_search=line_search, chunk=10, device="cpu")
+    power = TB.power_lipschitz_z if line_search == "pava" else TB.power_lipschitz
+    assert ep._lip == power(ep._dp)
+    runs, real = [], TB._power_iterate
+    monkeypatch.setattr(TB, "_power_iterate", lambda *a: runs.append(1) or real(*a))
+    rng = np.random.default_rng(4)
+    for B in ([_streaming_b(pt, tsyn, rng) for _ in range(3)],
+              [_streaming_b(pt, tsyn, rng)], [_streaming_b(pt, tsyn, rng) for _ in range(2)]):
+        B = np.squeeze(np.stack(B))
+        got = ep.solve(B, tol=0.0, max_iter=30)
+        want = bt.solve(bt.prepare(dataclasses.replace(pt, b=B), device="cpu"), method="pgd",
+                        line_search=line_search, tol=0.0, max_iter=30, chunk=10,
+                        lipschitz=ep._lip)
+        for field in ("x", "objective", "gap", "trace_f", "trace_gap"):
+            np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+    assert not runs
 
 
 def test_endpoint_row_bucketed_layout_takes_b_in_the_users_row_order():

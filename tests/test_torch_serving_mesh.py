@@ -20,6 +20,7 @@ from bsls_tpu_torch.models import synthetic as tsyn
 from bsls_tpu_torch.parallel import mesh as TM
 from torch_port_helpers import (QUEUE_ITERS, World, eq_requests, eq_serving_instance,
                                 queue_requests, serve_mesh_instance)
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # float64, one Lipschitz constant: a request and the same scenario in
 # another batch, or on the unsharded endpoint, part by rounding only

@@ -26,6 +26,7 @@ from bsls_tpu_torch.parallel import mesh as TM
 from bsls_tpu_torch.parallel import sharding as TS
 from bsls_tpu_torch.solvers import base as TB
 from torch_port_helpers import _arr
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def rank_view(shape: dict, coords: dict) -> TM.Mesh:
@@ -258,3 +259,39 @@ def test_world_of_one_equals_the_unsharded_solve(world_of_one, kind, kw):
     np.testing.assert_allclose(got.trace_f.reshape(want.trace_f.shape), want.trace_f,
                                rtol=1e-9)
     np.testing.assert_allclose(got.x, want.x, atol=1e-8)
+
+
+@pytest.mark.parametrize("rows", [False, True], ids=["col", "rows"])
+def test_a_mesh_result_carries_the_phases_and_counts_of_one_device(world_of_one, rows):
+    """One solve body: a mesh result has the single-device ``phases`` and
+    the layout's ``gather_counts``."""
+    prob = instances(tsyn, "ell")
+    kw = dict(tol=0.0, max_iter=40, chunk=20, layout="gather")
+    want = bt.solve(prob, device="cpu", **kw)
+    got = bt.solve(prob, mesh=world_of_one, shard_rows=rows, **kw)
+    assert list(got.phases) == list(want.phases) == ["power", "init", "chunks", "result"]
+    dp = TS.placement(prob, world_of_one, layout="gather", shard_rows=rows).dp
+    assert TL.gather_counts(dp.A).keys() == {"gather_slots", "gather_nnz"}
+    assert got.counts == {"chunks": 2, "captures": 0, **TL.gather_counts(dp.A)}
+
+
+@pytest.mark.parametrize("entry", ["solve", "solve_sharded", "Endpoint.solve"])
+def test_refine_tol_alone_polishes_with_the_default_round_cap(world_of_one, monkeypatch,
+                                                              entry):
+    prob = instances(tsyn, "dense")
+    seen = []
+
+    def polish(problem, dp, res, rounds=3, cg_iters=30, target_rel_gap=None):
+        seen.append((rounds, target_rel_gap))
+        return res
+
+    monkeypatch.setattr(TB, "refine_polish", polish)
+    kw = dict(tol=0.0, max_iter=20, refine_tol=1e-7)
+    if entry == "solve":
+        bt.solve(prob, device="cpu", chunk=10, **kw)
+    elif entry == "solve_sharded":
+        TS.solve_sharded(prob, world_of_one, chunk=10, **kw)
+    else:
+        bt.Endpoint(prob, method="pgd", chunk=10, device="cpu").solve(prob.b, **kw)
+    assert seen == [(TB.DEFAULT_REFINE_ROUNDS, 1e-7)]
+

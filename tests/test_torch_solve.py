@@ -12,6 +12,7 @@ from bsls_tpu.models import synthetic as jsyn
 from bsls_tpu_torch.models import synthetic as tsyn
 from bsls_tpu_torch.solvers.base import StopTracker, power_lipschitz, power_lipschitz_z
 from torch_port_helpers import KERNELS, small_instance
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _lipschitz(prob, line_search):

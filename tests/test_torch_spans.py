@@ -13,8 +13,10 @@ import bsls_tpu_torch as bt
 from bsls_tpu_torch.models import synthetic as syn
 from bsls_tpu_torch.solvers.eq_constrained import solve_equality_constrained
 from bsls_tpu_torch.utils.profiling import span
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
-REQUEST_PHASES = ["upload", "power", "init", "chunks", "result"]
+# an Endpoint estimates ||A||^2 at its build: a request runs no power iteration
+REQUEST_PHASES = ["upload", "init", "chunks", "result"]
 
 
 @pytest.fixture(autouse=True)
@@ -62,6 +64,15 @@ def test_request_spans_nest_in_order_under_the_profiler(endpoint):
     assert sum(res.phases.values()) <= host
     assert res.phases["chunks"] == pytest.approx(float(np.sum(res.chunk_times)))
     assert res.counts["captures"] == 0  # the CPU runs its chunks eagerly
+
+
+def test_the_build_runs_the_power_iteration_and_a_request_does_not():
+    prob = syn.tiny_dense(seed=3, num_blocks=20, dim=6, m=150)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        ep = bt.Endpoint(prob, method="pgd", chunk=5, device="cpu")
+        ep.solve(prob.b, tol=0.0, max_iter=10)
+    names = [name for name, _, _ in _spans(prof)]
+    assert names.count("power") == 1 and names.index("power") < names.index("request")
 
 
 class _Sink:
@@ -126,7 +137,8 @@ def test_phases_and_counts_without_a_profiler(endpoint):
     res = ep.solve(prob.b, tol=0.0, max_iter=10)
     assert list(res.phases) == REQUEST_PHASES and res.counts["chunks"] == 2
     direct = bt.solve(prob, method="pgd", tol=0.0, max_iter=10, chunk=5, device="cpu")
-    assert list(direct.phases) == REQUEST_PHASES[1:] and direct.counts["chunks"] == 2
+    assert list(direct.phases) == ["power", *REQUEST_PHASES[1:]]
+    assert direct.counts["chunks"] == 2
     phases = {}
     with span("x", phases) as s:
         pass

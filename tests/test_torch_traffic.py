@@ -14,6 +14,7 @@ from bsls_tpu.models import synthetic as jsyn
 from bsls_tpu.models import traffic as jtr
 from bsls_tpu_torch.models import synthetic as tsyn
 from bsls_tpu_torch.models import traffic as ttr
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the CLI child's float64 host work in one BLAS thread (see test_torch_package.py)

@@ -1,7 +1,27 @@
 """Shared helpers of the tests/test_torch_*.py files: flatten the device
 objects of both packages to dictionaries of numpy arrays (the only thing that
-crosses between them) and build the small seeded instances the tests use."""
+crosses between them) and build the small seeded instances the tests use.
+
+Every test_torch_*.py module imports ``one_torch_thread``, so each runs
+torch at one intra-op thread, alone or in the suite."""
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch at one intra-op thread while a module of the port's tests runs:
+    the suite's workers share the machine's cores, and torch's default of one
+    thread per core in each of them spins against the others.  The count
+    comes back after the module, so that the reference's tests in the same
+    worker run in the process state they have without the port's: a worker
+    where torch's thread count was set makes the reference's CPU mesh tests
+    (XLA's collectives over 8 virtual devices) hang more often."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 # every hand-written kernel of the port, under the name its wrapper counts
 KERNELS = ("proj_simplex_rows", "pava_rows", "band_zmv", "band_grmv", "pgd_chunk",
@@ -325,8 +345,9 @@ def _world_eq_mesh(spec):
                                        row_group=group if rows else None)
         part = prob.partition if rows else TS._block_partition(prob, 2).partition
         key = TEQ.op_cache_key(prob, f64, "pgd", "exact", mesh.device, mesh, rows)
-        cache = {key: ((dp, part, mesh), ref["rho_base"], ref["L_base"], ref["LC"],
-                       prob.A, prob.C)}
+        cache = {key: TEQ.EqInstance.of(
+            prob, mesh.device, place=TS.MeshPlacement(dp, part, mesh, np.ndim(prob.b) == 1),
+            rho_base=ref["rho_base"], L_base=ref["L_base"], LC=ref["LC"])}
         rec = Outers()
         res = bt.solve_equality_constrained(prob, mesh=mesh, shard_rows=rows, dtype=f64,
                                             op_cache=cache, metrics=rec, **EQ_MESH_ITERS)
