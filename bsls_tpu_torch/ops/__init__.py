@@ -1,6 +1,6 @@
 from . import (
     banded, chunkkernel, cudalib, ellkernels, isotonic, layout, pagekernels, projection,
-    quadratic, rowkernels, simplex, ztransform,
+    quadratic, rowkernels, simplex, stepkernels, ztransform,
 )
 from .banded import DeviceBanded
 from .chunkkernel import pgd_chunk
@@ -45,6 +45,7 @@ __all__ = [
     "quadratic",
     "rowkernels",
     "simplex",
+    "stepkernels",
     "ztransform",
     "pava_blocks",
     "pava_bounded",

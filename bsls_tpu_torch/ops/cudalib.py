@@ -4,10 +4,10 @@ The sources are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per
 source, all started together, then one link) into one shared library with a
 plain C interface, at first use, into ``csrc/_build/``; the library is loaded
 with ``ctypes``.  Nothing happens at import.  The wrapper modules
-(``rowkernels``, ``pagekernels``, ``chunkkernel``, ``ellkernels``) declare the
-argument types of their own functions, pass pointers from
-``tensor.data_ptr()`` and the stream of ``torch.cuda.current_stream()``, and
-record every launch here.
+(``rowkernels``, ``pagekernels``, ``chunkkernel``, ``ellkernels``,
+``stepkernels``) declare the argument types of their own functions, pass
+pointers from ``tensor.data_ptr()`` and the stream of
+``torch.cuda.current_stream()``, and record every launch here.
 
 A launch made while a thread captures a CUDA graph (``recording``) runs
 only when the graph is replayed: it is counted into the capture's record,
@@ -27,11 +27,11 @@ import subprocess
 import threading
 
 __all__ = ["build_library", "load", "launched", "launch_counts", "reset_launch_counts",
-           "count", "recording", "add_record"]
+           "count", "recording", "record_launches", "add_record"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _SOURCES = ("proj_simplex_rows.cu", "pava_rows.cu", "band_pages.cu", "pgd_chunk.cu",
-            "ell_products.cu")
+            "ell_products.cu", "pgd_step.cu")
 _HEADERS = ("rows_common.cuh", "proj_device.cuh")
 _BUILD_DIR = os.path.join(_CSRC, "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libbsls_kernels.so")
@@ -41,7 +41,8 @@ _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _lock = threading.Lock()
 _lib = None
 _LAUNCHES = {"proj_simplex_rows": 0, "pava_rows": 0, "band_zmv": 0, "band_grmv": 0,
-             "pgd_chunk": 0, "ell_gather_dot": 0}
+             "pgd_chunk": 0, "ell_gather_dot": 0, "step_prep": 0, "step_dir": 0,
+             "step_update": 0}
 
 
 def launch_counts() -> dict:
@@ -79,6 +80,11 @@ def recording():
         yield _capture.record
     finally:
         _capture.record = None
+
+
+def record_launches(record: dict) -> dict:
+    """The kernel launches of one replay of a capture's record, by name."""
+    return {name: n for counter, name, n in record.values() if counter is _LAUNCHES}
 
 
 def add_record(record: dict) -> None:

@@ -76,6 +76,7 @@ __all__ = [
     "inject_user_grad",
     "feasible_init",
     "gather_dot",
+    "takes_operand",
     "matvec",
     "rmatvec",
     "matvec_ps",
@@ -89,15 +90,16 @@ __all__ = [
 
 def check_dtype(dtype, device) -> None:
     """The CUDA kernels (``proj_simplex_rows``, ``pava_rows``,
-    ``band_zmv``/``band_grmv``, ``pgd_chunk``, ``ell_gather_dot``) take
-    float32 only, so a CUDA device takes no other dtype: refused here, from
-    the device's type alone, before any upload or CUDA call.  Every other
-    device takes any dtype."""
+    ``band_zmv``/``band_grmv``, ``pgd_chunk``, ``ell_gather_dot``,
+    ``step_prep``/``step_dir``/``step_update``) take float32 only, so a CUDA
+    device takes no other dtype: refused here, from the device's type alone,
+    before any upload or CUDA call.  Every other device takes any dtype."""
     if torch.device(device).type == "cuda" and dtype != torch.float32:
         raise ValueError(
             f"dtype={dtype} on a CUDA device: the CUDA kernels proj_simplex_rows, pava_rows, "
-            "band_zmv/band_grmv, pgd_chunk and ell_gather_dot take float32 only; pass "
-            "dtype=torch.float32 (the default) or device='cpu'")
+            "band_zmv/band_grmv, pgd_chunk, ell_gather_dot and pgd_step's "
+            "step_prep/step_dir/step_update take float32 only; pass dtype=torch.float32 (the "
+            "default) or device='cpu'")
 
 
 def resolve_device(device) -> torch.device:
@@ -1032,9 +1034,11 @@ def _batched(fn, vec: torch.Tensor) -> torch.Tensor:
     return fn(vec.t().contiguous()).t().contiguous()
 
 
-def _ell_product_plain(cols, vals, vec: torch.Tensor, zeros: int = 0, rank=None) -> torch.Tensor:
+def _ell_product_plain(cols, vals, vec: torch.Tensor, zeros: int = 0, rank=None,
+                       vt=None) -> torch.Tensor:
     """The plain version of ``_ell_product``, on any device: a gather
-    product a group over the (n, S) transpose, a cat, the rank gather."""
+    product a group over the (n, S) transpose (``vt`` where given), a cat,
+    the rank gather."""
     def run(vt):
         parts = [_gather_dot_t(v, c, vt) for c, v in zip(cols, vals)]
         if zeros:
@@ -1042,19 +1046,24 @@ def _ell_product_plain(cols, vals, vec: torch.Tensor, zeros: int = 0, rank=None)
         out = parts[0] if len(parts) == 1 else torch.cat(parts)
         return out if rank is None else out.index_select(0, rank)
 
+    if vt is not None and vec.ndim == 2:
+        return run(vt).t().contiguous()
     return _batched(run, vec)
 
 
-def _ell_product(cols, vals, vec: torch.Tensor, zeros: int = 0, rank=None) -> torch.Tensor:
+def _ell_product(cols, vals, vec: torch.Tensor, zeros: int = 0, rank=None,
+                 vt=None) -> torch.Tensor:
     """One ELL product of ``vec`` ((n,) or (S, n)): the groups ``(cols[i],
     vals[i])`` give the rows in sorted order after ``zeros`` zero rows, and
     ``rank`` (if given) maps each output row to its sorted row.  Returns
     (rows,) or (S, rows).  A CUDA tensor takes one launch of
     ``ellkernels.ell_gather_dot`` over the (n, S) transpose (every group at
-    once, the result in (S, rows)); a CPU tensor the plain version."""
+    once, the result in (S, rows)): ``vt`` where the caller gives that
+    transpose, made here otherwise; a CPU tensor the plain version."""
     if not vec.is_cuda:
-        return _ell_product_plain(cols, vals, vec, zeros, rank)
-    vt = (vec[:, None] if vec.ndim == 1 else vec.t()).contiguous()
+        return _ell_product_plain(cols, vals, vec, zeros, rank, vt)
+    if vt is None:
+        vt = (vec[:, None] if vec.ndim == 1 else vec.t()).contiguous()
     out = ellkernels.ell_gather_dot(cols, vals, vt, zeros, rank)
     return out[0] if vec.ndim == 1 else out
 
@@ -1069,22 +1078,36 @@ def gather_dot(vals: torch.Tensor, idx: torch.Tensor, vec: torch.Tensor) -> torc
     return _ell_product((idx,), (vals,), vec)
 
 
-def matvec(A: DeviceMatrix, x: torch.Tensor) -> torch.Tensor:
-    """A @ x for PF flat x of shape (n_pf,) or (S, n_pf)."""
+def takes_operand(A: DeviceMatrix) -> bool:
+    """Whether ``matvec(A, x, xt)`` reads an (n_pf, S) copy ``xt`` of x: a
+    gather-layout row copy does (on the card), alone, as a stack's part or as
+    a band's gather residual."""
+    if isinstance(A, DeviceVStack):
+        return takes_operand(A.top) or takes_operand(A.bottom)
+    if isinstance(A, DeviceBanded):
+        return A.resid is not None and takes_operand(A.resid)
+    return isinstance(A, DeviceEll) and A.mv_cols is not None
+
+
+def matvec(A: DeviceMatrix, x: torch.Tensor, xt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A @ x for PF flat x of shape (n_pf,) or (S, n_pf).  ``xt``, where
+    given, is x's contiguous (n_pf, S) copy, which the ELL products on the
+    card read in place of a transpose of their own (``takes_operand``)."""
     if isinstance(A, DeviceBanded):
         y = banded_matvec(A, x)
-        return y if A.resid is None else y + matvec(A.resid, x)
+        return y if A.resid is None else y + matvec(A.resid, x, xt)
     if isinstance(A, DeviceDense):
         # full fp32: TF32 is off package-wide (see bsls_tpu_torch/__init__.py)
         return x @ A.data.t()
     if isinstance(A, DeviceVStack):
-        return torch.cat([matvec(A.top, x), A.bottom_scale * matvec(A.bottom, x)], dim=-1)
+        return torch.cat([matvec(A.top, x, xt), A.bottom_scale * matvec(A.bottom, x, xt)],
+                         dim=-1)
     if isinstance(A.mv_cols, tuple):
         # row-nnz-bucketed: per-width partials concatenate contiguously in
         # the (nnz-sorted) permuted row order — no scatter, minimal rows
-        return _ell_product(A.mv_cols, A.mv_vals, x)
+        return _ell_product(A.mv_cols, A.mv_vals, x, vt=xt)
     if A.mv_cols is not None:
-        return _ell_product((A.mv_cols[0],), (A.mv_vals[0],), x)
+        return _ell_product((A.mv_cols[0],), (A.mv_vals[0],), x, vt=xt)
     # no row copy (a row wider than ROW_ELL_MAX_K): scatter-add fallback
     contrib = A.vals * x[..., :, None]  # (..., n, k)
     out = torch.zeros(*x.shape[:-1], A.num_rows, dtype=contrib.dtype, device=x.device)
@@ -1126,12 +1149,13 @@ def psum_if_sharded(dp: DeviceProblem, v: torch.Tensor) -> torch.Tensor:
     return _psum(v, dp.col_group)
 
 
-def matvec_ps(dp: DeviceProblem, x: torch.Tensor) -> torch.Tensor:
+def matvec_ps(dp: DeviceProblem, x: torch.Tensor,
+              xt: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A @ x assembled across the column (block) shards: local partial +
     all-reduce over ``col_group``.  Under row sharding the result is this
     rank's row segment of r (no collective).  The residual collective of the
-    sharded step."""
-    return _psum(matvec(dp.A, x), dp.col_group)
+    sharded step.  ``xt``: as ``matvec``'s."""
+    return _psum(matvec(dp.A, x, xt), dp.col_group)
 
 
 def rmatvec_ps(dp: DeviceProblem, r: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Per-block simplex ops on the padded (..., B, w) layout: the entropic-mirror
-(EG) update, the Frank-Wolfe vertex and the pairwise direction, and the block
-minimum of the Frank-Wolfe gap.
+(EG) update, the Frank-Wolfe vertex and the pairwise direction, the block
+minimum of the Frank-Wolfe gap and the gap itself (``fw_gap``).
 
 Counterpart of ``bsls_tpu/ops/simplex.py``.  The masks are (B, w) and the
 radii (B,); values may carry a leading scenario axis, and a step size ``t`` is
@@ -13,9 +13,11 @@ from __future__ import annotations
 
 import torch
 
+from . import layout as L
+
 __all__ = [
     "eg_update_padded", "eg_update", "fw_vertex_padded", "fw_vertex",
-    "pairwise_direction_padded", "pairwise_direction", "block_min",
+    "pairwise_direction_padded", "pairwise_direction", "block_min", "fw_gap",
 ]
 
 _NEG = -1e30
@@ -133,3 +135,17 @@ def block_min(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     valid = mask > 0
     m = torch.where(valid, g, torch.full((), big, dtype=g.dtype, device=g.device)).amin(dim=-1)
     return torch.where(valid.any(dim=-1), m, torch.zeros((), dtype=g.dtype, device=g.device))
+
+
+def fw_gap(dp, g_flat: torch.Tensor, x_flat: torch.Tensor, gp) -> torch.Tensor:
+    """Frank-Wolfe duality gap g.(x - s) on the product of (radius-scaled)
+    simplices, over the last axis: (S,) for (S, n_pf) inputs.  Dummy rows
+    (all-padding blocks) contribute nothing.  Summed over the column shards
+    when sharded.  (The reference keeps it in ``bsls_tpu/solvers/base.py``;
+    ``solvers/base.py`` re-exports it.)"""
+    total_min = 0.0
+    for g, bk in zip(gp, dp.buckets):
+        valid = (bk.mask > 0).any(dim=-1)
+        bm = block_min(g, bk.mask)
+        total_min = total_min + torch.where(valid, bk.radius * bm, torch.zeros_like(bm)).sum(dim=-1)
+    return L.psum_if_sharded(dp, (g_flat * x_flat).sum(dim=-1) - total_min)

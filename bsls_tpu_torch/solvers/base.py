@@ -63,7 +63,7 @@ from ..ops import cudalib
 from ..ops import layout as L
 from ..ops import ztransform as Z
 from ..ops.projection import proj_blocks
-from ..ops.simplex import block_min
+from ..ops.simplex import fw_gap
 from ..utils.checkpoint import resume_state, save_state
 from ..utils.profiling import span
 
@@ -212,19 +212,6 @@ class StopTracker:
             self.reason = "gap" if by_gap else ("stall" if by_stall else "gap/stall")
             return True
         return False
-
-
-def fw_gap(dp, g_flat: torch.Tensor, x_flat: torch.Tensor, gp) -> torch.Tensor:
-    """Frank-Wolfe duality gap g.(x - s) on the product of (radius-scaled)
-    simplices, over the last axis: (S,) for (S, n_pf) inputs.  Dummy rows
-    (all-padding blocks) contribute nothing.  Summed over the column shards
-    when sharded."""
-    total_min = 0.0
-    for g, bk in zip(gp, dp.buckets):
-        valid = (bk.mask > 0).any(dim=-1)
-        bm = block_min(g, bk.mask)
-        total_min = total_min + torch.where(valid, bk.radius * bm, torch.zeros_like(bm)).sum(dim=-1)
-    return L.psum_if_sharded(dp, (g_flat * x_flat).sum(dim=-1) - total_min)
 
 
 def _start_vector(dp: L.DeviceProblem, seed: int, v0) -> torch.Tensor:
@@ -1015,6 +1002,9 @@ def solve_on(
     state, it = loop.state, loop.iterations
     phases["chunks"] = float(sum(loop.chunk_times))
     counts["chunks"] = len(loop.chunk_times)
+    # the steps that ran through the step kernels (ops/stepkernels.py): the
+    # step_prep launches of one replay of the chunk program, a chunk
+    counts["fused_steps"] = getattr(run, "launches", {}).get("step_prep", 0) * counts["chunks"]
     if checkpoint_path and checkpoint_every:
         save_state(checkpoint_path, state, meta={"iteration": it}, keep=checkpoint_keep,
                    shard=place.shard(state))

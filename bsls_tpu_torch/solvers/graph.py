@@ -230,6 +230,11 @@ class ChunkProgram:
         st, (tf, tg) = self._body()  # CPU tensors (the binding's tests): the chunk itself
         return [*_state_leaves(st)[1], tf, tg]
 
+    @property
+    def launches(self) -> dict:
+        """The kernel launches of one replay, by name (``ops/cudalib.py``)."""
+        return cudalib.record_launches(self._record)
+
     def run(self, dp, state, L_est):
         """(state, (trace_f, trace_gap)) of one chunk from ``state`` on
         ``dp``'s per-call inputs and ``L_est`` (a float or a 0-d tensor);
@@ -349,7 +354,8 @@ def graph_runner(dp, solver, opts, L_est, steps: int, state):
     steps as the cached program of its key (captured now on a miss; a hit
     launches nothing here), replayed once a call with ``dp``'s ``b`` and
     scales and ``L_est``.  ``run.captures`` is 1 when this call captured
-    it, else 0.  CUDA tensors only."""
+    it, else 0; ``run.launches`` the kernel launches of one replay.  CUDA
+    tensors only."""
     if dp.device.type != "cuda" or dp.sharded:
         raise ValueError("graph_runner: an unsharded problem on a CUDA device only")
     key = chunk_key(opts, steps, dp, state)
@@ -367,4 +373,5 @@ def graph_runner(dp, solver, opts, L_est, steps: int, state):
 
     run.program = program
     run.captures = len(made)
+    run.launches = program.launches
     return run

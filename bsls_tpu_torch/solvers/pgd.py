@@ -16,6 +16,13 @@ Counterpart of ``bsls_tpu/solvers/pgd.py``.  The state always carries a
 leading scenario axis S (S = 1 for a single right-hand side): ``xp[k]`` is
 (S, Bk, w), ``r`` is (S, m), and ``f``, ``gap`` and every step size are (S,)
 — one exact step per scenario.
+
+The exact x-space step (``_exact_step``) runs its passes around the
+products and the projection through ``ops/stepkernels.py``: its three
+hand-written kernels where ``fused_step`` holds (float32 on the card, no
+process group), else their plain versions (the CPU, float64, a mesh, whose
+dots are summed over ranks before t is formed).  The other modes take the
+chain of PyTorch passes in ``step``.
 """
 from __future__ import annotations
 
@@ -23,10 +30,11 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from ..ops import isotonic, layout as L, projection, quadratic as Q, ztransform as Z
+from ..ops import isotonic, layout as L, projection, quadratic as Q, stepkernels as SK
+from ..ops import ztransform as Z
 from .base import SolveOptions, fw_gap
 
-__all__ = ["PGDState", "init", "step", "refresh"]
+__all__ = ["PGDState", "init", "step", "refresh", "fused_step"]
 
 
 @dataclass(frozen=True)
@@ -77,7 +85,35 @@ def refresh(dp, st: PGDState, L_est, opts: SolveOptions) -> PGDState:
     return replace(st, r=r, f=Q.objective_from_residual(dp, r))
 
 
+def fused_step(dp, opts: SolveOptions, st: PGDState) -> bool:
+    """Whether ``step`` launches the step kernels of ``ops/stepkernels.py``:
+    the exact line search in x-space on a float32 state on the card, with no
+    process group over the problem (whose dots would need an all-reduce
+    before t is formed)."""
+    return (opts.line_search == "exact" and opts.space == "x" and st.r.is_cuda
+            and st.r.dtype == torch.float32 and not dp.sharded)
+
+
+def _exact_step(dp, st: PGDState, L_est, opts: SolveOptions, fused: bool) -> PGDState:
+    """The exact x-space step: the step kernels where ``fused``, else their
+    plain versions, which take the same arguments."""
+    if fused:
+        prep, direction, update = SK.step_prep, SK.step_dir, SK.step_update
+    else:
+        prep, direction, update = SK.prep_plain, SK.dir_plain, SK.update_plain
+    g_flat = Q.grad_flat(dp, st.r)
+    cand, x_flat, gap = prep(dp, st.xp, g_flat, st.f, L_est, opts.step_size)
+    xhat = projection.proj_blocks(cand, dp.buckets)
+    d = direction(dp, xhat, st.xp, x_flat, g_flat)
+    Ad = L.matvec_ps(dp, d.flat, d.operand)
+    xp_new, r_new, f_new, gap = update(dp, st.xp, x_flat, st.r, d, Ad, gap)
+    return PGDState(xp=xp_new, r=r_new, f=f_new, gap=gap, k=st.k + 1,
+                    x_prev=x_flat, g_prev=g_flat)
+
+
 def step(dp, st: PGDState, L_est, opts: SolveOptions) -> PGDState:
+    if opts.line_search == "exact" and opts.space == "x":
+        return _exact_step(dp, st, L_est, opts, fused_step(dp, opts, st))
     x_flat = L.padded_to_flat(dp, st.xp)
     g_flat = Q.grad_flat(dp, st.r)
     gp = L.flat_to_padded(dp, g_flat)
@@ -126,7 +162,7 @@ def step(dp, st: PGDState, L_est, opts: SolveOptions) -> PGDState:
 
     d_flat = L.padded_to_flat(dp, dxp)
     Ad = L.matvec_ps(dp, d_flat)
-    if opts.line_search == "exact":
+    if opts.line_search == "exact":  # in z-space (x-space: _exact_step)
         t = Q.exact_step(dp, L.xdot(dp, g_flat, d_flat), Ad, 0.0, 1.0)
     elif opts.line_search in ("bbm", "pava"):
         # pava shares the monotone BB safeguard: unit BB step if it descends,

@@ -91,7 +91,13 @@ refused before anything is uploaded.  The ELL product kernel
 32 and 128 on medium's row and column groups, the eq path's stacked operator
 and a column-sharded local ELL, and on eleven groups (two launches), then
 timed at medium's two products beside its bytes bound, the plain chain and
-``torch.sparse.mm`` over a CSR copy.  With ``--ptxas`` the build phase fails
+``torch.sparse.mm`` over a CSR copy.  The exact step's three kernels
+(``step_prep``, ``step_dir``, ``step_update``: one row, ``pgd_step``) are held
+a step at a time against the chain they replaced at medium x 128, the eq
+path's stacked operator x 128 and config 4 x 4 (and against themselves, bit
+for bit), then timed at medium x 128 and config 4 x 4 beside their bytes
+bound and their plain versions, with the device operations of one eager step
+through them and through the chain.  With ``--ptxas`` the build phase fails
 unless both row kernels (every form, inlined) and every instantiation of the
 ELL product kernel keep everything out of local memory (no stack frame, no
 spills).
@@ -118,7 +124,7 @@ if not torch.cuda.is_available():
 import bsls_tpu_torch as bt  # noqa: E402
 from bsls_tpu_torch import native  # noqa: E402
 from bsls_tpu_torch.ops import (  # noqa: E402
-    chunkkernel, cudalib, ellkernels, isotonic, pagekernels, rowkernels)
+    chunkkernel, cudalib, ellkernels, isotonic, pagekernels, rowkernels, stepkernels)
 from bsls_tpu_torch.ops import layout as TL  # noqa: E402
 from bsls_tpu_torch.ops.banded import PAGE, DeviceBanded  # noqa: E402
 from bsls_tpu_torch.ops.isotonic import pava_padded  # noqa: E402
@@ -1214,6 +1220,190 @@ def measure_ell(name, spec, ctx):
                 per_s={str(S): e for S, e in per_s.items()})
 
 
+# ------------------------------------------- phase 3: the step kernels
+
+# one step through the three step kernels against the chain they replaced,
+# on the same inputs: x, r, f and the gap relative to their largest entry
+STEP_REL_LIMIT = 1e-5
+STEP_KERNELS = ("step_prep", "step_dir", "step_update")
+
+
+def _stacked(prob, scale=2.0, seed=7):
+    """The eq path's stacked operator [A; scale C] of ``prob`` as a device
+    problem, with a random bottom of the right-hand side."""
+    from bsls_tpu_torch.models.problem import ScaledMatrix, VStackMatrix
+
+    plain = dataclasses.replace(prob, C=None, d=None)
+    dp = bt.prepare(plain, device=DEV, layout="gather")
+    perm = TL.build_pf_perm(plain.partition)
+    V = TL.to_device_matrix(VStackMatrix(top=plain.A, bottom=ScaledMatrix(prob.C, scale)), perm,
+                            device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    bottom = torch.randn(dp.b.shape[:-1] + (prob.C.shape[0],), generator=gen, device=DEV)
+    return dataclasses.replace(dp, A=V, b=torch.cat([dp.b, bottom], dim=-1))
+
+
+def step_cases(ctx):
+    """(label, device problem) of the shapes the step kernels serve in the
+    cells: medium x 128 (two buckets), traffic_like's stacked operator x 128
+    (four buckets), config 4 x 4 (one bucket, 1M blocks), and medium at the
+    stream's padded batches S = 1, 8 and 32 (the first S rows of its b):
+    step_dir's scalar transposed stores (S < 4) and apply's last block
+    folding over 32, 16 or 2 lanes a scenario."""
+    if "large4" not in ctx:
+        ctx["large4"] = bt.prepare(bt.synthetic.large_sharded(seed=0), device=DEV,
+                                   layout="gather")
+        ctx["eq128"] = _stacked(ctx["eq_prob"])
+    medium = ctx["medium"]
+    return [("medium128", medium), ("eq128", ctx["eq128"]), ("large4", ctx["large4"]),
+            *((f"medium{S}", dataclasses.replace(medium, b=medium.b[:S].contiguous()))
+              for S in (1, 8, 32))]
+
+
+def _step_state(dp, steps=3):
+    from bsls_tpu_torch.solvers import base as B, pgd
+
+    opts = B.SolveOptions()
+    L = B.lipschitz_tensor(B.power_lipschitz(dp), DEV)
+    st = pgd.init(dp, L, opts)
+    for _ in range(steps):
+        st = pgd.step(dp, st, L, opts)
+    return st, L, opts
+
+
+def _chain_step(dp, st, L):
+    """The step through the step kernels' plain versions on the card (the
+    products making their own transposes): the chain they replaced."""
+    from bsls_tpu_torch.solvers import base as B, pgd
+
+    return pgd._exact_step(dp, st, L, B.SolveOptions(), False)
+
+
+def _device_ops(fn):
+    """Device operations (kernels, copies, sets) of one call, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def check_step(name, spec, ctx):
+    """One step through the kernels against the chain on the same inputs at
+    each of ``step_cases``, and the kernels' launches a step."""
+    from bsls_tpu_torch.solvers import pgd
+
+    errs, shapes = [], []
+    for label, dp in step_cases(ctx):
+        st, L, opts = _step_state(dp)
+        check(pgd.fused_step(dp, opts, st), f"{name}: {label} does not take the step kernels")
+        before = bt.launch_counts()
+        got = pgd.step(dp, st, L, opts)
+        torch.cuda.synchronize()
+        after = bt.launch_counts()
+        check(tuple(after[k] - before[k] for k in STEP_KERNELS) == (1, 1, 2),
+              f"{name}: {label}: a step did not take one step_prep, one step_dir and two "
+              "step_update launches")
+        want = _chain_step(dp, st, L)
+        for field, a, b in (("x", TL.padded_to_flat(dp, got.xp), TL.padded_to_flat(dp, want.xp)),
+                            ("r", got.r, want.r), ("f", got.f, want.f),
+                            ("gap", got.gap, want.gap)):
+            errs.append(_ell_rel(a, b))
+            check(errs[-1] <= STEP_REL_LIMIT, f"{name}: {label}: {field} differs from the "
+                  f"chain's by {errs[-1]:.2e} of its largest entry")
+        again = pgd.step(dp, st, L, opts)
+        check(all(torch.equal(a, b) for a, b in zip((*got.xp, got.r, got.f, got.gap),
+                                                     (*again.xp, again.r, again.f, again.gap))),
+              f"{name}: {label}: a step does not repeat itself bit for bit")
+        shapes.append(label)
+        del st, got, want, again
+    torch.cuda.synchronize()
+    return max(errs), shapes, STEP_REL_LIMIT
+
+
+def measure_step(name, spec, ctx):
+    """Each step kernel at medium x 128 and config 4 x 4, device time of one
+    launch on inputs cycled past the L2, beside its bytes once over 3.35 TB/s
+    and its plain version (the chain's passes for the same stretch, eager, as
+    the solver made them); the device operations of one eager step through
+    the kernels and through the chain.  ``step_update``'s bound reads Ad
+    once; its two passes read it twice (Ad.Ad is summed over every block
+    before t, and so r + t Ad, can be formed): ``two_pass_bytes``."""
+    from bsls_tpu_torch.ops import projection, quadratic as Q
+    from bsls_tpu_torch.solvers import pgd
+
+    SK = stepkernels
+    per_case = {}
+    for label, dp in [c for c in step_cases(ctx) if c[0] in ("medium128", "large4")]:
+        st, L, opts = _step_state(dp)
+        S, n = st.x_prev.shape
+        m = st.r.shape[1]
+        n_in = inputs_in_turn(4 * S * n)
+        ins = []
+        for _ in range(n_in):
+            g = Q.grad_flat(dp, st.r)
+            xp = tuple(x.clone() for x in st.xp)
+            cand, x_flat, gparts = SK.step_prep(dp, xp, g, st.f, L, 0.0)
+            xhat = projection.proj_blocks(cand, dp.buckets)
+            d = SK.step_dir(dp, xhat, xp, x_flat, g)
+            Ad = TL.matvec_ps(dp, d.flat, d.operand)
+            ins.append(dict(xp=xp, g=g, x_flat=x_flat, gparts=gparts, xhat=xhat, d=d, Ad=Ad,
+                            r=st.r.clone()))
+        at = lambda i: ins[i % n_in]
+        vec = 4 * S * n
+        bytes_ = {"step_prep": 4 * vec + 8 * sum(bk.sizes.numel() for bk in dp.buckets),
+                  "step_dir": vec * (4 + (1 if TL.takes_operand(dp.A) else 0)),
+                  # x and d read, x written; r and Ad read, r written
+                  "step_update": 3 * vec + 3 * 4 * S * m}
+        runs = {
+            "step_prep": lambda i: SK.step_prep(dp, at(i)["xp"], at(i)["g"], st.f, L, 0.0),
+            "step_dir": lambda i: SK.step_dir(dp, at(i)["xhat"], at(i)["xp"], at(i)["x_flat"],
+                                              at(i)["g"]),
+            "step_update": lambda i: SK.step_update(dp, at(i)["xp"], at(i)["x_flat"], at(i)["r"],
+                                                    at(i)["d"], at(i)["Ad"], at(i)["gparts"]),
+        }
+        # the plain versions write in place (xhat, d, Ad): repeated calls
+        # drift the values, not the work
+        plain_d = [SK.dir_plain(dp, tuple(x.clone() for x in a["xhat"]), a["xp"], a["x_flat"],
+                                 a["g"]) for a in ins]
+        plain_Ad = [a["Ad"].clone() for a in ins]
+        plains = {
+            "step_prep": lambda i: SK.prep_plain(dp, at(i)["xp"], at(i)["g"], st.f, L, 0.0),
+            "step_dir": lambda i: SK.dir_plain(dp, at(i)["xhat"], at(i)["xp"], at(i)["x_flat"],
+                                               at(i)["g"]),
+            "step_update": lambda i: SK.update_plain(dp, at(i)["xp"], at(i)["x_flat"],
+                                                     at(i)["r"], plain_d[i % n_in],
+                                                     plain_Ad[i % n_in], None),
+        }
+        e = {}
+        for k in STEP_KERNELS:
+            b_ms, by = bound(bytes_[k], 0)
+            e[k] = {"ms": device_ms(runs[k]), "bound_ms": b_ms, "bytes": bytes_[k],
+                    "plain_ms": call_ms(plains[k], reps=5)}
+            e[k]["share_of_bound"] = b_ms / e[k]["ms"]
+        e["step_update"]["two_pass_bytes"] = bytes_["step_update"] + 4 * S * m
+        e["operand_transpose_ms"] = device_ms(
+            lambda i: at(i)["d"].flat.t().contiguous())  # what the product no longer makes
+        e["device_ops_a_step"] = {
+            "kernels": _device_ops(lambda: pgd.step(dp, st, L, opts)),
+            "chain": _device_ops(lambda: _chain_step(dp, st, L))}
+        e["step_ms"] = {"kernels": call_ms(lambda i: pgd.step(dp, st, L, opts), reps=10),
+                        "chain": call_ms(lambda i: _chain_step(dp, st, L), reps=10)}
+        e["shape"] = {"S": S, "n_pf": n, "m": m, "buckets": len(dp.buckets)}
+        per_case[label] = e
+        del ins, plain_d, plain_Ad, st
+        torch.cuda.empty_cache()
+    main = per_case["medium128"]
+    total = {key: sum(main[k][key] for k in STEP_KERNELS) for key in ("ms", "bound_ms",
+                                                                      "plain_ms")}
+    return dict(max_abs_err=0.0, err_is="relative to the largest entry of x, r, f and the gap",
+                ms=total["ms"], bound_ms=total["bound_ms"], bound_by="bytes",
+                plain_ms=total["plain_ms"], library_ms=None,
+                share_of_bound=total["bound_ms"] / total["ms"], per_case=per_case)
+
+
 KERNELS = {
     "proj_simplex_rows": dict(
         fn=rowkernels.proj_simplex_rows, buckets_fn=rowkernels.proj_simplex_buckets,
@@ -1284,6 +1474,13 @@ KERNELS = {
         source="bsls_tpu_torch/csrc/ell_products.cu",
         replaces=None,  # the reference's products are XLA gathers (ops/layout.py:902)
         check=check_ell, measure=measure_ell,
+    ),
+    # one row for the three kernels of the exact step (step_prep, step_dir,
+    # step_update); its launches sum theirs
+    "pgd_step": dict(
+        source="bsls_tpu_torch/csrc/pgd_step.cu",
+        replaces=None,  # the reference's step is XLA's fusion (bsls_tpu/solvers/pgd.py)
+        check=check_step, measure=measure_step,
     ),
 }
 
@@ -2906,7 +3103,7 @@ def phase_mesh_ranks(ctx):
               f"mesh_ranks: rank {rk['rank']} returned another result")
         check(rk["launches"]["proj_simplex_rows"] > 0,
               f"mesh_ranks: rank {rk['rank']} made no projection launch")
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(bt.launch_counts(), 0)
     for rk in ranks:
         for name, c in rk["launches"].items():
             launches[name] += c
@@ -2997,7 +3194,7 @@ def phase_mesh_eq_world1(ctx):
     t_phase = time.perf_counter()
     prob, want = ctx["eq_prob"], ctx["eq_unsharded"]
     mesh = bt.make_mesh(block=1, device=DEV)
-    runs, launches = {}, dict.fromkeys(KERNELS, 0)
+    runs, launches = {}, dict.fromkeys(bt.launch_counts(), 0)
     for name, rows in (("col", False), ("rows", True)):
         torch.cuda.reset_peak_memory_stats(DEV)
         res, outer, dp, build_secs, counts, secs = eq_on_mesh(prob, mesh, rows, want["consts"],
@@ -3117,7 +3314,7 @@ def phase_mesh_eq_ranks(ctx):
     for name in ("col", "rows"):
         f0 = np.asarray(ranks[0][name]["objective"], np.float64)
         rels[name] = float(np.max(np.abs(f0 - want["objective"]) / np.abs(want["objective"])))
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(bt.launch_counts(), 0)
     for rk in ranks:
         for name in ("col", "rows"):
             for k, c in rk[name]["launches"].items():
@@ -3392,9 +3589,10 @@ def main():
             return fn(*a)
 
     launches = graphed("solve_exact", phase_solve, "solve_exact", prob, dp, "exact", 200,
-                       ("proj_simplex_rows", "ell_gather_dot"))
+                       ("proj_simplex_rows", "ell_gather_dot") + STEP_KERNELS)
     report["proj_simplex_rows"]["launches"] = launches["proj_simplex_rows"]
     report["ell_gather_dot"]["launches"] = launches["ell_gather_dot"]
+    report["pgd_step"]["launches"] = sum(launches[k] for k in STEP_KERNELS)
     launches = graphed("solve_pava", phase_solve, "solve_pava", prob, dp, "pava", 200,
                        ("pava_rows", "ell_gather_dot"))
     report["pava_rows"]["launches"] = launches["pava_rows"]
@@ -3440,6 +3638,7 @@ def main():
     for counts in new_paths:
         for name in report:
             report[name]["launches"] += counts.get(name, 0)
+        report["pgd_step"]["launches"] += sum(counts.get(k, 0) for k in STEP_KERNELS)
 
     for name, row in report.items():
         check(row["launches"] > 0, f"{name} was not launched on its path")

@@ -309,7 +309,7 @@ def _twin(A, device):
         return v
 
     return dataclasses.replace(A, **{f.name: move(getattr(A, f.name))
-                                     for f in dataclasses.fields(A)})
+                                     for f in dataclasses.fields(A) if f.init})
 
 
 def _hold_products(A, n, m, S, dev, seed=0):

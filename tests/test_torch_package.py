@@ -95,7 +95,7 @@ def test_every_c_entry_point_a_wrapper_names_exists_in_csrc():
         with open(os.path.join(csrc, src)) as fh:
             defined |= set(re.findall(r'extern "C" \w+ (bsls_\w+)\(', fh.read()))
     named = set()
-    for mod in ("rowkernels", "pagekernels", "chunkkernel", "ellkernels"):
+    for mod in ("rowkernels", "pagekernels", "chunkkernel", "ellkernels", "stepkernels"):
         with open(os.path.join(PKG, "ops", mod + ".py")) as fh:
             named |= set(re.findall(r"\b(bsls_[a-z_0-9]+)\b", fh.read()))
     named = {n for n in named if not n.startswith("bsls_tpu")}  # the packages' names

@@ -272,7 +272,7 @@ def test_a_mesh_result_carries_the_phases_and_counts_of_one_device(world_of_one,
     assert list(got.phases) == list(want.phases) == ["power", "init", "chunks", "result"]
     dp = TS.placement(prob, world_of_one, layout="gather", shard_rows=rows).dp
     assert TL.gather_counts(dp.A).keys() == {"gather_slots", "gather_nnz"}
-    assert got.counts == {"chunks": 2, "captures": 0, **TL.gather_counts(dp.A)}
+    assert got.counts == {"chunks": 2, "captures": 0, "fused_steps": 0, **TL.gather_counts(dp.A)}
 
 
 @pytest.mark.parametrize("entry", ["solve", "solve_sharded", "Endpoint.solve"])

@@ -98,7 +98,7 @@ def test_eq_counters_read_the_same_with_and_without_a_sink():
     copied = (8 * prob.A.shape[0] + 8 * prob.C.shape[0] + 2 * (4 + 8)
               + 4 * prob.partition.n_flat + 8 * prob.C.shape[0] + 8)
     assert with_sink.counts == without.counts == {"outers": 2, "chunks": 4, "captures": 0,
-                                                  "eq_host_bytes": copied}
+                                                  "fused_steps": 0, "eq_host_bytes": copied}
     assert with_sink.counts["outers"] == len(sink.outer)
     # the records' host seconds are the spans' own, and the sink's seconds
     # are eq.record's, not eq.host's

@@ -25,7 +25,7 @@ def one_torch_thread():
 
 # every hand-written kernel of the port, under the name its wrapper counts
 KERNELS = ("proj_simplex_rows", "pava_rows", "band_zmv", "band_grmv", "pgd_chunk",
-           "ell_gather_dot")
+           "ell_gather_dot", "step_prep", "step_dir", "step_update")
 
 
 def _arr(a):
